@@ -9,7 +9,11 @@ zk-SNARK, reference src/snark.c):
   the four CRS sections are back to back in the stream.
 * prover: w, v = v_0 + w and h = (v^2 - 1)/t on the CRT-NTT engine, then
   all five evaluations in ONE fused keystream->MAC sweep (K3) over the
-  contiguous CRS term range (the one-pass form), then smudging.
+  contiguous CRS term range (the one-pass form), then smudging.  Given a
+  ``tile`` it goes stage by stage instead, as the reference does: import
+  Enc(beta t), evaluate the witness bits over the bv section, then (w, h)
+  over the s section and (v, h) over the as section; the proof bytes are
+  the same.
 * verifier: 5 decrypts and the mod-p relations.
 
 All randomness beyond the CRS seed comes from a second seeded AES-CTR
@@ -24,11 +28,11 @@ import functools
 
 import numpy as np
 import torch
-
-from c_lwe_snarks_tpu.utils.params import Params
+import torch.nn.functional as F
 
 from ..ops import digits as dg
 from ..ops import modp, ntt, sampling
+from ..utils.params import Params
 from . import lwe as tlwe
 from . import ssp as tssp
 
@@ -118,8 +122,14 @@ def setup(
     ent_offset: int,
     ssp: tssp.SSP,
     params: Params,
+    *,
+    tile: int | None = None,
 ) -> tuple[CRS, VRS]:
-    """CRS/VRS generation (src/snark.c:57-115)."""
+    """CRS/VRS generation (src/snark.c:57-115).
+
+    With ``tile=None`` the 2d+m encryptions are one fused launch (K4);
+    given a tile they take the two-stage scan path of
+    ``lwe.encrypt_section`` in tiles of that many ciphertexts."""
     d, m, n = params.d, params.m, params.n
     scalars = sampling.keystream_bytes(ent_key, ent_offset, 24).reshape(3, 8)
     alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
@@ -137,7 +147,9 @@ def setup(
         modp.mulmod_p(beta, t_s).reshape(1),    # beta t(s)    (CTR_BT)
         modp.mulmod_p(beta, v_s[1:]),           # beta v_i(s)  (CTR_BV)
     ])
-    rows = tlwe.encrypt_section(crs_key, params.ctr_s, sk, msgs, errs, params)
+    rows = tlwe.encrypt_section(
+        crs_key, params.ctr_s, sk, msgs, errs, params, tile=tile,
+        impl="auto" if tile is None else "scan")
     crs = CRS(seed=crs_key.seed, b_s=rows[:d], b_as=rows[d : 2 * d],
               b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
     return crs, VRS(alpha=alpha, beta=beta, s=s, sk=sk)
@@ -178,6 +190,52 @@ def _prover_evals_onepass(
     return out[0], out[1], out[2], out[3], out[4]
 
 
+def _pad_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad axis 0 to a multiple of mult.
+
+    Padding the b_w evaluation with zero coefficients adds exact zeros to
+    the MAC; the dummy terms read keystream past the section end, which
+    no real term consumes."""
+    extra = -x.shape[0] % mult
+    return x if extra == 0 else F.pad(x, (0, 0) * (x.dim() - 1) + (0, extra))
+
+
+def _prover_evals_stagewise(
+    crs_key: sampling.PRGKey,
+    crs: CRS,
+    w: torch.Tensor,
+    h: torch.Tensor,
+    v: torch.Tensor,
+    delta: torch.Tensor,
+    witness: torch.Tensor,
+    params: Params,
+    tile: int,
+) -> tuple:
+    """The five prover evaluations section by section (src/snark.c:140-183).
+
+    b_w = delta * ct(beta t) + sum_{witness} ct(beta v_i): Enc(beta t) is
+    imported at CTR_BT, and the masked sum is a homomorphic evaluation
+    with 0/1 coefficients over the bv section, padded to whole tiles (or
+    to an even count when the section is shorter than a tile).  Then two
+    fused two-polynomial evaluations: (w, h) over the s section and
+    (v, h) over the as section.  Returns (v_w, h, hat_v, hat_h, b_w).
+    """
+    m = params.m
+    ct_bt = tlwe.ct_import(crs_key, params.ctr_bt, crs.b_t[None], params)[0]
+    bw_mult = tile if (m - 1) >= tile else 2
+    bw_coeffs = _pad_multiple(witness[: m - 1].to(torch.int64), bw_mult)
+    bw_rows = _pad_multiple(crs.b_v, bw_mult)
+    b_w = tlwe.ct_add(
+        tlwe.ct_mul_ui(ct_bt, delta),
+        tlwe.eval_poly_multi(
+            crs_key, params.ctr_bv, bw_rows, bw_coeffs[None], params, tile=tile)[0])
+    ev_s = tlwe.eval_poly_multi(
+        crs_key, params.ctr_s, crs.b_s, torch.stack([w, h]), params, tile=tile)
+    ev_as = tlwe.eval_poly_multi(
+        crs_key, params.ctr_as, crs.b_as, torch.stack([v, h]), params, tile=tile)
+    return ev_s[0], ev_s[1], ev_as[0], ev_as[1], b_w
+
+
 def prover(
     crs_key: sampling.PRGKey,
     ent_key: sampling.PRGKey,
@@ -186,8 +244,13 @@ def prover(
     ssp: tssp.SSP,
     witness: torch.Tensor,
     params: Params,
+    *,
+    tile: int | None = None,
 ) -> Proof:
-    """src/snark.c:117-190; witness: uint8 bits [m] (bit i-1 gates v_i)."""
+    """src/snark.c:117-190; witness: uint8 bits [m] (bit i-1 gates v_i).
+
+    With ``tile=None`` the five evaluations are one kernel sweep; given a
+    tile they run stage by stage (``_prover_evals_stagewise``)."""
     d, m = params.d, params.m
     delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
 
@@ -200,8 +263,12 @@ def prover(
     num[0] = modp.submod_p(num[0], 1)
     h = ntt.poly_div_exact_mod_p(num, ssp.t, d)
 
-    v_w, h_ct, hat_v, hat_h, b_w = _prover_evals_onepass(
-        crs_key, crs, w, h, v, delta, witness, params)
+    if tile is None:
+        v_w, h_ct, hat_v, hat_h, b_w = _prover_evals_onepass(
+            crs_key, crs, w, h, v, delta, witness, params)
+    else:
+        v_w, h_ct, hat_v, hat_h, b_w = _prover_evals_stagewise(
+            crs_key, crs, w, h, v, delta, witness, params, tile)
 
     # smudging in the reference order: h, hat_h, hat_v, v_w, v_w (v_w
     # twice, b_w never — src/snark.c:184-189)

@@ -13,9 +13,8 @@ import dataclasses
 
 import torch
 
-from c_lwe_snarks_tpu.utils.params import Params
-
 from ..ops import modp, sampling
+from ..utils.params import Params
 
 
 @dataclasses.dataclass

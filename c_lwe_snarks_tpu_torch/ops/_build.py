@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels: nvcc into a shared library, ctypes.
 
 ``csrc/*.cu`` compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-into one shared library with a plain C interface, at the first CUDA
-call.  The library lands in ``build/torch_kernels/`` at the repository
-root, named by a hash of the sources, so an edited source rebuilds.  A
-failed build raises with nvcc's output.  Nothing here runs at import:
-the CPU tests import every module of the package.
+(one nvcc per source, all started together) and link into one shared
+library with a plain C interface, at the first CUDA call.  The library
+lands in ``build/torch_kernels/`` at the repository root, named by a hash
+of the sources, so an edited source rebuilds.  A failed build raises with
+nvcc's output.  Nothing here runs at import: the CPU tests import every
+module of the package.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # C signatures: "p" pointer (tensor), "u32", "u64", "i64"; every function
@@ -35,6 +36,7 @@ SIGNATURES = {
         "p", "p", "u32", "u32", "u64", "p", "i64", "i64", "i64", "p"),
     "cls_encrypt_b_fused": (
         "p", "p", "u32", "u32", "u64", "p", "i64", "i64", "p", "p"),
+    "cls_keystream_blocks_v1": ("p", "u32", "u32", "u64", "i64", "p"),
 }
 
 _lib = None
@@ -60,16 +62,30 @@ def build() -> pathlib.Path:
         BUILD_INFO.setdefault("path", str(lib))
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{f.stem}.{tag}.o" for f in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    tmp.replace(lib)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib),
-                      log=res.stdout + res.stderr)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f, o in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for f, p, log in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on {f.name}:\n{log}")
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+        tmp.replace(lib)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib), log="".join(logs))
     return lib
 
 

@@ -1,14 +1,20 @@
-"""AES-256-CTR keystream: kernels K1 (raw words) and K2 (mod-p folds).
+"""AES-256-CTR keystream: kernels K1 (raw words), K2 (mod-p folds) and K5
+(the bitsliced raw keystream, ``keystream_blocks(version=1)``).
 
-Port of ``c_lwe_snarks_tpu/ops/aes_pallas.py`` (``_kernel_v2`` and
-``_kernel_v2_fold``) and ``ops/aes_tpu.py``.  The block layout is the
-reference's ``nonce (8 B LE) || ctr64 (8 B LE)`` and the keystream is the
-AES-256 encryption of consecutive counters.
+Port of ``c_lwe_snarks_tpu/ops/aes_pallas.py`` (``_kernel_v2``,
+``_kernel_v2_fold`` and ``_kernel``) and ``ops/aes_tpu.py``.  The block
+layout is the reference's ``nonce (8 B LE) || ctr64 (8 B LE)`` and the
+keystream is the AES-256 encryption of consecutive counters.
 
-Both kernels use the textbook T-table cipher (``csrc/aes_core.cuh``) with
-the standard round keys from ``oracle.aes.key_expansion``; the plain
-versions below run the same T-table rounds as torch gathers.  Words are
-int64 tensors holding [0, 2^32); the kernels see them as int32 bit views.
+K1 and K2 use the textbook T-table cipher (``csrc/aes_core.cuh``) with
+the standard round keys from ``utils/aes_host.key_expansion``; their
+plain versions run the same T-table rounds as torch gathers.  K5
+(``csrc/keystream_bitsliced.cu``) is a table-free bitsliced cipher: 128
+bit planes per group of 32 blocks, the 115-gate S-box of ``ops/sbox_bp.py``
+and round keys as 0 / ~0 plane masks with the S-box constant 0x63 folded
+into rounds 1..14; its plain version runs the same circuit on tensors.
+Words are int64 tensors holding [0, 2^32); the kernels see them as int32
+bit views.
 
 Each wrapper takes the plain version for a key on the CPU and launches
 the CUDA kernel for a key on a CUDA device; ``LAUNCHES`` counts the
@@ -22,12 +28,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from c_lwe_snarks_tpu.oracle import aes as host_aes
-
-from . import _build
+from ..utils import aes_host as host_aes
+from . import _build, sbox_bp
+from .bitslice import transpose32
 
 MASK32 = 0xFFFFFFFF
-LAUNCHES = {"keystream_words": 0, "keystream_fold_p": 0}
+LAUNCHES = {"keystream_words": 0, "keystream_fold_p": 0, "keystream_blocks_v1": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +47,8 @@ class AESKey:
     sbox: torch.Tensor  # int64 [256]
     tables32: torch.Tensor  # int32 [1280]: Te0..Te3 then the S-box (kernels)
     rk32: torch.Tensor  # int32 [60] (kernels)
+    rk_planes: torch.Tensor  # int64 [15, 128]: 0 / 2^32-1 masks, plane 8 * byte + bit
+    rk_planes32: torch.Tensor  # int32 [15, 128] (kernel K5)
 
     @property
     def device(self) -> torch.device:
@@ -57,10 +65,25 @@ def _t_tables() -> np.ndarray:
     return np.stack([te0, ror(te0, 8), ror(te0, 16), ror(te0, 24), s]).astype(np.uint32)
 
 
+def _rk_planes(rks: np.ndarray) -> np.ndarray:
+    """Round-key bytes [15, 16] -> uint32 [15, 128] bit-plane masks (0 / ~0).
+
+    Plane 8 * i + k is bit k (LSB first) of byte i.  Round keys 1..14 also
+    carry the S-box constant: the bitsliced circuit computes S(x) ^ 0x63,
+    and a uniform 0x63 state passes ShiftRows and MixColumns unchanged, so
+    flipping those planes of every later round key cancels it exactly.
+    """
+    bits = (rks[:, :, None] >> np.arange(8, dtype=np.uint8)) & 1  # [15, 16, 8]
+    const = (sbox_bp.AFFINE_CONST >> np.arange(8)) & 1
+    bits[1:] ^= const.astype(np.uint8)
+    return (bits.reshape(15, 128).astype(np.uint32) * np.uint32(MASK32))
+
+
 def make_key(seed: bytes, device) -> AESKey:
     """seed = 8 nonce bytes (LE) || 32 key bytes."""
     assert len(seed) == 40
     rks = host_aes.key_expansion(bytes(seed[8:]))  # [15, 16] bytes
+    planes = _rk_planes(rks)
     rk = rks.reshape(60, 4).astype(np.uint32)
     rk = (rk[:, 0] << 24) | (rk[:, 1] << 16) | (rk[:, 2] << 8) | rk[:, 3]
     tables = _t_tables()
@@ -74,6 +97,8 @@ def make_key(seed: bytes, device) -> AESKey:
         sbox=tab64[4],
         tables32=torch.tensor(tables.reshape(-1).view(np.int32), device=device),
         rk32=torch.tensor(rk.view(np.int32), device=device),
+        rk_planes=torch.tensor(planes.astype(np.int64), device=device),
+        rk_planes32=torch.tensor(planes.view(np.int32), device=device),
     )
 
 
@@ -130,7 +155,8 @@ def keystream_words_plain(key: AESKey, start_ctr: int, nblocks: int) -> torch.Te
 def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     """int64 LE words [..., w] -> uint8 stream bytes [..., 4w]."""
     shifts = torch.arange(4, device=words.device) * 8
-    return ((words[..., None] >> shifts) & 255).to(torch.uint8).reshape(*words.shape[:-1], -1)
+    return ((words[..., None] >> shifts) & 255).to(torch.uint8).reshape(
+        *words.shape[:-1], 4 * words.shape[-1])
 
 
 def keystream_bytes_plain(key: AESKey, byte_offset: int, nbytes: int) -> torch.Tensor:
@@ -145,6 +171,55 @@ def keystream_fold_p_plain(key: AESKey, start_ctr: int, npairs: int) -> torch.Te
     w = keystream_words_plain(key, start_ctr, -(-npairs // 2))[: 2 * npairs]
     w = w.reshape(npairs, 2)
     return (w[:, 1] * 5 + w[:, 0]) % ((1 << 32) - 5)
+
+
+def keystream_blocks_v1_plain(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
+    """uint8 [nblocks, 16] keystream of counters start..start+n: the
+    bitsliced circuit of kernel K5 on int64 tensors (plain torch).
+
+    The state is 8 bit planes of shape [16, G], rows = state byte i (FIPS
+    input order, i = r + 4c), one word per group of 32 consecutive blocks,
+    bit b of a word = block b of the group.
+    """
+    groups = -(-nblocks // 32)
+    if start_ctr + 32 * groups > 1 << 63:
+        raise ValueError("counter beyond 2^63 is not supported by the plain path")
+    dev = key.device
+    ctr = start_ctr + torch.arange(32 * groups, dtype=torch.int64, device=dev)
+    ctr = ctr.reshape(groups, 32).T  # [32 (block b), G]
+    nonce = key.nonce_lo | (key.nonce_hi << 32)
+    nonce_planes = torch.tensor(
+        [MASK32 * ((nonce >> j) & 1) for j in range(64)], dtype=torch.int64, device=dev)
+    state = torch.cat([
+        nonce_planes[:, None].expand(64, groups),  # bytes 0..7
+        transpose32(ctr & MASK32),  # bytes 8..11: plane j = counter bit j
+        transpose32(ctr >> 32),  # bytes 12..15
+    ]).reshape(16, 8, groups)
+    rk = key.rk_planes.reshape(15, 16, 8, 1)
+    planes = [state[:, k] ^ rk[0, :, k] for k in range(8)]
+
+    # ShiftRows: new[r][c] = old[r][(c + r) % 4] as a gather of rows i = r + 4c
+    shift = torch.tensor([(i % 4) + 4 * ((i // 4 + i % 4) % 4) for i in range(16)], device=dev)
+
+    def mix_columns(x):
+        """x: [16, G] -> per column new_r = a_r ^ t ^ xtime(a_r ^ a_{r+1})."""
+        a = [p.reshape(4, 4, groups) for p in x]  # [c, r, G]
+        u = [p ^ torch.roll(p, -1, dims=1) for p in a]
+        t = [(p[:, 0] ^ p[:, 1] ^ p[:, 2] ^ p[:, 3])[:, None] for p in a]
+        xt = [u[7], u[0] ^ u[7], u[1], u[2] ^ u[7], u[3] ^ u[7], u[4], u[5], u[6]]
+        return [(a[k] ^ t[k] ^ xt[k]).reshape(16, groups) for k in range(8)]
+
+    for rnd in range(1, 15):
+        planes = [p[shift] for p in sbox_bp.sbox_bits_bp(planes)]
+        if rnd < 14:
+            planes = mix_columns(planes)
+        planes = [p ^ rk[rnd, :, k] for k, p in enumerate(planes)]
+
+    # planes 32w .. 32w + 31 of the [128, G] state are the bits of LE word w
+    bits = torch.stack(planes, dim=1).reshape(4, 32, groups)
+    words = torch.stack([transpose32(bits[w]) for w in range(4)])  # [w, b, G]
+    words = words.permute(2, 1, 0).reshape(32 * groups, 4)[:nblocks]
+    return words_to_bytes(words)
 
 
 # --------------------------------------------------------------------------
@@ -194,3 +269,46 @@ def keystream_fold_p(key: AESKey, start_ctr: int, npairs: int) -> torch.Tensor:
         )
         LAUNCHES["keystream_fold_p"] += 1
     return _build.words64(out)
+
+
+def keystream_blocks_v1(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
+    """uint8 [nblocks, 16] keystream bytes of counters start..start+n.
+
+    K5: on a CUDA key, one launch of the bitsliced register cipher
+    (``csrc/keystream_bitsliced.cu``), which writes the stream bytes
+    themselves; it never gives way to K1 or to the plain version."""
+    _check_ctr(start_ctr, nblocks)
+    if key.device.type == "cpu":
+        return keystream_blocks_v1_plain(key, start_ctr, nblocks)
+    if key.device.type != "cuda":
+        raise ValueError(f"unsupported device {key.device}")
+    out = torch.empty(nblocks, 16, dtype=torch.uint8, device=key.device)
+    if nblocks:
+        _build.launch(
+            "cls_keystream_blocks_v1", key.rk_planes32, key.nonce_lo, key.nonce_hi,
+            start_ctr, nblocks, out,
+        )
+        LAUNCHES["keystream_blocks_v1"] += 1
+    return out
+
+
+def keystream_blocks(
+    key: AESKey, start_ctr: int, nblocks: int, *, version: int = 2
+) -> torch.Tensor:
+    """uint8 [nblocks, 16] keystream bytes for counters [start, start+n).
+
+    ``version == 2`` reads the T-table kernel K1 (``keystream_words``);
+    any other version runs the bitsliced kernel K5.  Both give the same
+    bytes."""
+    if version == 2:
+        return words_to_bytes(keystream_words(key, start_ctr, nblocks).reshape(nblocks, 4))
+    return keystream_blocks_v1(key, start_ctr, nblocks)
+
+
+def keystream_bytes(key: AESKey, byte_offset: int, nbytes: int) -> torch.Tensor:
+    """Keystream bytes [byte_offset, byte_offset + nbytes); offset % 16 == 0.
+
+    (``sampling.keystream_bytes`` takes any alignment.)"""
+    if byte_offset % 16:
+        raise ValueError("section base must be block aligned")
+    return keystream_blocks(key, byte_offset // 16, -(-nbytes // 16)).reshape(-1)[:nbytes]

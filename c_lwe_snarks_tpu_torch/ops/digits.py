@@ -120,6 +120,15 @@ def bigint_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return carry_fold(bigint_dot_acc(a, b))
 
 
+def coeff_mac_acc(coeff_bytes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Byte-plane multiply-accumulate of the scan evaluation path.
+
+    coeff_bytes: uint8 [T, C] (C byte planes of T coefficients); x: uint8
+    [T, X] (T ciphertext rows).  Returns int64 [C, X]:
+    out[c] = sum_t coeff_bytes[t, c] * x[t]."""
+    return u8_matmul(coeff_bytes.T, x)
+
+
 def combine_shift_planes(planes: torch.Tensor) -> torch.Tensor:
     """out[.., t] = sum_c planes[c][.., t-c] (values shifted past K-1 drop).
 

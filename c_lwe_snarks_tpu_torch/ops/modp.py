@@ -25,6 +25,17 @@ P = (1 << 32) - 5  # plaintext modulus (GAMMA_P)
 _CHUNK = 1024
 
 
+def mul32(a, b):
+    """Exact 32x32 -> 64-bit product of words in [0, 2^32) as (hi, lo) words."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    ll, lh, hl, hh = a0 * b0, a0 * b1, a1 * b0, a1 * b1  # each < 2^32
+    mid = (ll >> 16) + (lh & 0xFFFF) + (hl & 0xFFFF)  # < 3 * 2^16
+    lo = (ll & 0xFFFF) | ((mid & 0xFFFF) << 16)
+    hi = hh + (lh >> 16) + (hl >> 16) + (mid >> 16)
+    return hi, lo
+
+
 def mulmod_p(a, b):
     """(a * b) mod p for words a, b in [0, 2^32) (tensors or ints)."""
     # a * (b >> 16) < 2^48 and a * (b & 0xFFFF) < 2^48: no int64 overflow

@@ -5,8 +5,9 @@ Port of ``c_lwe_snarks_tpu/ops/sampling.py``.  A batch of PRG draws is
 ``[count, draw_bytes]``; the mod-2^704 layer keeps the low 88 digits.
 Byte offsets may have any alignment: the helpers generate from the
 enclosing AES block and slice.  Stream positions are python ints: the
-64-bit block counter travels as one int (``split_offset`` and
-``advance_ctr`` give the JAX package's (lo, hi) word form).
+64-bit block counter travels as one int (``split_offset``,
+``offset_parts`` and ``advance_ctr`` give the JAX package's (lo, hi) word
+form).  Keys live on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ class PRGKey:
     ``rseed_t``.
     """
 
-    def __init__(self, seed: bytes, device="cpu"):
+    def __init__(self, seed: bytes, device="cuda"):
         assert len(seed) == 40
         self.seed = bytes(seed)
         self.aes = aes.make_key(self.seed, device)
@@ -39,6 +40,17 @@ def split_offset(byte_offset: int):
     return byte_offset % 16, (blk & 0xFFFFFFFF, blk >> 32)
 
 
+def offset_parts(byte_offset: int) -> tuple[int, int, int]:
+    """Byte offset -> (skip, ctr_lo, ctr_hi): the flat form of ``split_offset``."""
+    skip, (lo, hi) = split_offset(byte_offset)
+    return skip, lo, hi
+
+
+def parts_to_offset(parts):
+    """(skip, ctr_lo, ctr_hi) -> (skip, (ctr_lo, ctr_hi))."""
+    return parts[0], (parts[1], parts[2])
+
+
 def advance_ctr(lo: int, hi: int, nblocks: int):
     """64-bit counter addition on a (lo, hi) pair of words."""
     c = (lo | (hi << 32)) + nblocks
@@ -48,6 +60,11 @@ def advance_ctr(lo: int, hi: int, nblocks: int):
 def keystream_words(key: PRGKey, start_ctr: int, nblocks: int) -> torch.Tensor:
     """int64 [4 * nblocks] LE stream words for counters [start, start+n) (K1)."""
     return aes.keystream_words(key.aes, start_ctr, nblocks)
+
+
+def keystream_blocks(key: PRGKey, start_ctr: int, nblocks: int) -> torch.Tensor:
+    """uint8 [nblocks, 16] keystream bytes for counters [start, start+n) (K1)."""
+    return aes.keystream_blocks(key.aes, start_ctr, nblocks)
 
 
 def keystream_fold_p(key: PRGKey, start_ctr: int, npairs: int) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 The JAX package's objects enter as numpy arrays (``np.asarray`` of each
 field), so this module needs no jax.  Words become int64 tensors, digit
-rows uint8 tensors, on the requested device.
+rows uint8 tensors, on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -22,19 +22,19 @@ def _digits(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, dtype=np.uint8)[..., :88], device=device)
 
 
-def ssp_from_numpy(t, v, device="cpu") -> tssp.SSP:
+def ssp_from_numpy(t, v, device="cuda") -> tssp.SSP:
     """t [d], v [m, d] words -> SSP (int64 tensors)."""
     return tssp.SSP(t=_words(t, device), v=_words(v, device))
 
 
-def crs_from_numpy(seed: bytes, b_s, b_as, b_t, b_v, device="cpu") -> tsnark.CRS:
+def crs_from_numpy(seed: bytes, b_s, b_as, b_t, b_v, device="cuda") -> tsnark.CRS:
     """Compressed b-rows ([..., 88] or [..., 92] bytes) -> CRS."""
     return tsnark.CRS(
         seed=bytes(seed), b_s=_digits(b_s, device), b_as=_digits(b_as, device),
         b_t=_digits(b_t, device), b_v=_digits(b_v, device))
 
 
-def vrs_from_numpy(alpha, beta, s, sk, device="cpu") -> tsnark.VRS:
+def vrs_from_numpy(alpha, beta, s, sk, device="cuda") -> tsnark.VRS:
     return tsnark.VRS(
         alpha=_words(alpha, device), beta=_words(beta, device),
         s=_words(s, device), sk=_digits(sk, device))

@@ -31,7 +31,7 @@ P = params_mod.custom(d=256, m=8, n=6)
 
 @pytest.fixture(scope="module")
 def keys():
-    return tsam.PRGKey(SEED), jsam.PRGKey(SEED)
+    return tsam.PRGKey(SEED, "cpu"), jsam.PRGKey(SEED)
 
 
 def _eq(got: torch.Tensor, want) -> None:

@@ -27,7 +27,7 @@ WRAP = (1 << 32) - 3  # counter low word wraps after 3 blocks
 
 @pytest.fixture(scope="module")
 def keys():
-    return tsam.PRGKey(SEED), jsam.PRGKey(SEED)
+    return tsam.PRGKey(SEED, "cpu"), jsam.PRGKey(SEED)
 
 
 def _eq(got: torch.Tensor, want) -> None:

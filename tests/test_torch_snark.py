@@ -137,7 +137,7 @@ def test_verifier_rejects_tampered_proof(port_run):
 
 
 def test_verifier_rejects_wrong_witness(port_run):
-    crs_key, ent_key = tsam.PRGKey(CRS_SEED), tsam.PRGKey(ENT_SEED)
+    crs_key, ent_key = tsam.PRGKey(CRS_SEED, "cpu"), tsam.PRGKey(ENT_SEED, "cpu")
     off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
     bad_wits = port_run.witness.clone()
     bad_wits[0] = 1 - bad_wits[0]
@@ -157,13 +157,14 @@ def test_prover_only_from_jax_state(jax_run):
     """The port's prover, fed the JAX package's SSP and CRS through
     utils/convert.py, gives the JAX package's proof."""
     wits, inst, crs, vrs, pi = jax_run
-    ssp = convert.ssp_from_numpy(np.asarray(inst.t), np.asarray(inst.v))
+    ssp = convert.ssp_from_numpy(np.asarray(inst.t), np.asarray(inst.v), "cpu")
     tcrs = convert.crs_from_numpy(crs.seed, np.asarray(crs.b_s), np.asarray(crs.b_as),
-                                  np.asarray(crs.b_t), np.asarray(crs.b_v))
+                                  np.asarray(crs.b_t), np.asarray(crs.b_v), "cpu")
     tvrs = convert.vrs_from_numpy(np.asarray(vrs.alpha), np.asarray(vrs.beta),
-                                  np.asarray(vrs.s), np.asarray(vrs.sk))
+                                  np.asarray(vrs.s), np.asarray(vrs.sk), "cpu")
     off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
-    proof = tsnark.prover(tsam.PRGKey(CRS_SEED), tsam.PRGKey(ENT_SEED), off_prove, tcrs, ssp,
+    proof = tsnark.prover(tsam.PRGKey(CRS_SEED, "cpu"), tsam.PRGKey(ENT_SEED, "cpu"), off_prove, tcrs,
+                          ssp,
                           torch.from_numpy(np.array(wits)), P)
     np.testing.assert_array_equal(convert.proof_to_numpy(proof), np.asarray(pi.stack()))
     assert bool(tsnark.verifier(tvrs, ssp, proof, P))
@@ -205,7 +206,7 @@ def test_witness_bits_release_m():
     """Release m = 21845: the top m % 8 witness bits are zero (floor-byte draw)."""
     m = 21845
     owit = EntropySource(ENT_SEED).urandomb(m)
-    wits = tssp.witness_bits(tsam.keystream_bytes(tsam.PRGKey(ENT_SEED), 0, m // 8), m)
+    wits = tssp.witness_bits(tsam.keystream_bytes(tsam.PRGKey(ENT_SEED, "cpu"), 0, m // 8), m)
     assert wits.tolist() == [(owit >> i) & 1 for i in range(m)]
     assert not wits[21840:].any()
 

@@ -1,12 +1,23 @@
-"""Write tests/golden/torch_port_digests.json from the JAX package on the CPU.
+"""Write the golden files of tests/golden/ from the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--profiles tiny toy]
+    python tools/make_torch_golden.py --keystream
 
-For each profile, runs random_ssp -> setup -> prover with the seeds of
-tests/test_snark_tpu.py and records the sha256 of the SSP buffer and of
-the CRS, VRS and proof bytes (c_lwe_snarks_tpu/utils/serial.py).  The
-PyTorch port is held to these digests on the GPU, where no JAX exists
-(chip_smoke.py).  The toy profile takes several minutes on the CPU.
+``torch_port_digests.json``: for each profile, runs random_ssp -> setup ->
+prover with the seeds of tests/test_snark_tpu.py and records the sha256 of
+the SSP buffer and of the CRS, VRS and proof bytes
+(c_lwe_snarks_tpu/utils/serial.py).  The toy profile takes several minutes
+on the CPU.
+
+``torch_port_keystream.json`` (``--keystream``): AES-256-CTR keystream
+windows from the JAX package's host oracle (c_lwe_snarks_tpu/oracle/aes.py,
+the generated-table numpy cipher, cross-checked against its OpenSSL path):
+a plain window, one across the low-word counter wrap and one at a counter
+above 2^32.
+
+The PyTorch port is held to both files on the GPU, where no JAX exists
+(chip_smoke.py), so its keystream kernels are checked against bytes that
+did not come from the port's own host cipher.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ sys.path.insert(0, str(ROOT))
 CRS_SEED = bytes(range(40, 80))
 ENT_SEED = bytes(range(40))
 GOLDEN = ROOT / "tests" / "golden" / "torch_port_digests.json"
+GOLDEN_KEYSTREAM = ROOT / "tests" / "golden" / "torch_port_keystream.json"
+KEYSTREAM_SEED = bytes(range(40))
+KEYSTREAM_WINDOWS = [(12345, 96), ((1 << 32) - 3, 64), ((1 << 32) + 98765, 64)]
 PROFILES = {"tiny": dict(d=16, m=8, n=32), "toy": dict(d=256, m=64, n=1470)}
 
 
@@ -59,10 +73,31 @@ def jax_digests(d: int, m: int, n: int) -> dict:
     return {k: hashlib.sha256(v).hexdigest() for k, v in blobs.items()}
 
 
+def oracle_keystream() -> dict:
+    """Keystream windows (hex) from the JAX package's host oracle."""
+    import numpy as np
+
+    from c_lwe_snarks_tpu.oracle import aes as host_aes
+
+    key, nonce = KEYSTREAM_SEED[8:], int.from_bytes(KEYSTREAM_SEED[:8], "little")
+    windows = []
+    for start, nblocks in KEYSTREAM_WINDOWS:
+        ks = host_aes.ctr_keystream_numpy(key, nonce, start, nblocks)
+        assert np.array_equal(ks, host_aes.ctr_keystream(key, nonce, start, nblocks))
+        windows.append({"start": start, "nblocks": nblocks, "bytes": ks.tobytes().hex()})
+    return {"seed": KEYSTREAM_SEED.hex(), "windows": windows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profiles", nargs="+", default=list(PROFILES), choices=list(PROFILES))
+    ap.add_argument("--keystream", action="store_true",
+                    help="write the keystream windows instead of the digests")
     args = ap.parse_args()
+    if args.keystream:
+        GOLDEN_KEYSTREAM.write_text(json.dumps(oracle_keystream(), indent=1) + "\n")
+        print(f"wrote {GOLDEN_KEYSTREAM.relative_to(ROOT)}")
+        return 0
     out = {"crs_seed": CRS_SEED.hex(), "ent_seed": ENT_SEED.hex(), "profiles": {}}
     if GOLDEN.exists():
         out["profiles"] = json.loads(GOLDEN.read_text())["profiles"]
