@@ -242,7 +242,7 @@ def eval_poly_multi(
     the two-stage loop of ``eval_poly_multi_acc`` over tiles of ``tile``
     terms, zero-padding the degree to whole tiles (padded terms multiply
     keystream past the section by zero); "auto" is "fused": K3 takes any
-    byte offset, any row count and any degree (it sums uint32 row segments
+    byte offset, any row count and any degree (it sums signed 32-bit row segments
     into int64), so none of the JAX package's eligibility rules carry over.
     """
     if impl not in ("auto", "fused", "scan"):

@@ -27,15 +27,17 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# C signatures: "p" pointer (tensor), "u32", "u64", "i64"; every function
-# takes the CUDA stream last and returns cudaGetLastError() as int.
+# C signatures: "p" pointer (CUDA tensor), "h" pointer to host bytes, "u32",
+# "u64", "i64"; every function takes the CUDA stream last and returns a CUDA
+# error code (of the launch, or of setting a kernel attribute) as int.
 SIGNATURES = {
     "cls_keystream_words": ("p", "p", "u32", "u32", "u64", "i64", "p"),
     "cls_keystream_fold_p": ("p", "p", "u32", "u32", "u64", "i64", "p"),
     "cls_eval_mac_planes": (
-        "p", "p", "u32", "u32", "u64", "p", "i64", "i64", "i64", "p"),
+        "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "i64", "p"),
     "cls_encrypt_b_fused": (
-        "p", "p", "u32", "u32", "u64", "p", "i64", "i64", "p", "p"),
+        "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "p", "p"),
+    "cls_cipher_core_cf": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_keystream_blocks_v1": ("p", "u32", "u32", "u64", "i64", "p"),
 }
 
@@ -95,7 +97,7 @@ def library():
     if _lib is None:
         import ctypes
 
-        types = {"p": ctypes.c_void_p, "u32": ctypes.c_uint32,
+        types = {"p": ctypes.c_void_p, "h": ctypes.c_char_p, "u32": ctypes.c_uint32,
                  "u64": ctypes.c_uint64, "i64": ctypes.c_int64}
         lib = ctypes.CDLL(str(build()))
         for name, sig in SIGNATURES.items():
@@ -134,6 +136,10 @@ def launch(name: str, *args) -> None:
             if not (isinstance(a, torch.Tensor) and a.is_cuda and a.is_contiguous()):
                 raise ValueError(f"{name}: pointer arguments must be contiguous CUDA tensors")
             cargs.append(a.data_ptr())
+        elif kind == "h":
+            if not isinstance(a, bytes):
+                raise ValueError(f"{name}: host arguments must be bytes")
+            cargs.append(a)
         else:
             cargs.append(int(a))
     stream = torch.cuda.current_stream().cuda_stream

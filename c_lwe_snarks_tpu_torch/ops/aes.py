@@ -49,6 +49,9 @@ class AESKey:
     rk32: torch.Tensor  # int32 [60] (kernels)
     rk_planes: torch.Tensor  # int64 [15, 128]: 0 / 2^32-1 masks, plane 8 * byte + bit
     rk_planes32: torch.Tensor  # int32 [15, 128] (kernel K5)
+    # host bytes of 60 uint32: rk[0..55], then round key 14 as little-endian
+    # words (the kernel parameter of the fused kernels K3 and K4)
+    rk_param: bytes
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +102,7 @@ def make_key(seed: bytes, device) -> AESKey:
         rk32=torch.tensor(rk.view(np.int32), device=device),
         rk_planes=torch.tensor(planes.astype(np.int64), device=device),
         rk_planes32=torch.tensor(planes.view(np.int32), device=device),
+        rk_param=rk[:56].astype("<u4").tobytes() + rks[14].tobytes(),
     )
 
 

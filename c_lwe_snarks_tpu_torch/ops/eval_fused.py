@@ -13,8 +13,12 @@ reaches device memory:
 
 Ciphertext i of a section starts at stream byte offset + i * CTR_CT with
 CTR_CT = 92n; of each 92-byte draw the low 88 bytes are digits and the
-top 4 are dead (the mod-2^704 truncation).  The plain versions expand the
-a-vectors chunk-wise and contract them with exact float64 products.
+top 4 are dead (the mod-2^704 truncation).  The kernels write the
+keystream tile to shared memory and contract it on the tensor cores
+(``mma.sync`` on unsigned bytes, signed 32-bit sums), with the
+conflict-free T-table cipher of ``csrc/aes_core_cf.cuh``.  The plain
+versions expand the a-vectors chunk-wise and contract them with exact
+float64 products.
 """
 
 from __future__ import annotations
@@ -81,7 +85,7 @@ def eval_mac_planes(
     if d:
         c32 = _build.bits32(coeffs)
         _build.launch(
-            "cls_eval_mac_planes", key.aes.tables32, key.aes.rk32,
+            "cls_eval_mac_planes", key.aes.tables32, key.aes.rk_param,
             key.aes.nonce_lo, key.aes.nonce_hi, section_offset, c32, k, d, n, out,
         )
         LAUNCHES["eval_mac_planes"] += 1
@@ -114,6 +118,13 @@ def encrypt_b_fused_plain(
     return torch.cat(out)
 
 
+def check_enc_bound(n: int) -> None:
+    """Raise unless K4's per-digit nibble sums, at most n * 88 * 255 * 15,
+    fit the tensor cores' signed 32-bit accumulators (n <= 6379)."""
+    if n * 88 * 255 * 15 >= 1 << 31:
+        raise ValueError(f"n={n} overflows the kernel's signed 32-bit accumulators")
+
+
 def encrypt_b_fused(
     key: sampling.PRGKey, section_offset: int, sk: torch.Tensor, count: int,
     n: int, ctr_ct: int,
@@ -132,16 +143,33 @@ def encrypt_b_fused(
     if sk.device.type != "cuda" or key.device != sk.device:
         raise ValueError(f"sk on {sk.device}, key on {key.device}")
     _build.check_tensor(sk, torch.uint8, (n, dg.DIGITS), sk.device)
-    # per-digit nibble sums reach n * 88 * 255 * 15: uint32 in the kernel
-    if n * 88 * 255 * 15 >= 1 << 32:
-        raise ValueError(f"n={n} overflows the kernel's uint32 accumulators")
-    v_lo = torch.empty(count, dg.DIGITS, dtype=torch.int32, device=sk.device)
-    v_hi = torch.empty_like(v_lo)
+    check_enc_bound(n)
+    # zeroed: the kernel splits the draws over blocks and adds their sums
+    v_lo = torch.zeros(count, dg.DIGITS, dtype=torch.int32, device=sk.device)
+    v_hi = torch.zeros_like(v_lo)
     if count:
         _build.launch(
-            "cls_encrypt_b_fused", key.aes.tables32, key.aes.rk32,
+            "cls_encrypt_b_fused", key.aes.tables32, key.aes.rk_param,
             key.aes.nonce_lo, key.aes.nonce_hi, section_offset, sk, count, n,
             v_lo, v_hi,
         )
         LAUNCHES["encrypt_b_fused"] += 1
     return _enc_epilogue(_build.words64(v_lo), _build.words64(v_hi))
+
+
+def cipher_core_words(key: sampling.PRGKey, start_ctr: int, nblocks: int) -> torch.Tensor:
+    """int32 [4 * nblocks] bit views of the LE keystream words of counters
+    start.., from the fused kernels' cipher core run alone.  A measurement
+    of the core (``chip_smoke.py`` times it beside K1's and K5's); nothing
+    in the protocol calls it, and it exists only on a CUDA device."""
+    if key.device.type != "cuda":
+        raise ValueError(f"the cipher core runs only on a CUDA device, got {key.device}")
+    if nblocks < 0 or start_ctr < 0:
+        raise ValueError((start_ctr, nblocks))
+    out = torch.empty(4 * nblocks, dtype=torch.int32, device=key.device)
+    if nblocks:
+        _build.launch(
+            "cls_cipher_core_cf", key.aes.tables32, key.aes.rk_param, key.aes.nonce_lo,
+            key.aes.nonce_hi, start_ctr, nblocks, out,
+        )
+    return out

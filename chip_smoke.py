@@ -13,14 +13,19 @@ non-zero, and only a full pass prints the final JSON line):
    the largest shape the release main path gives it, where both are timed
    with CUDA events; K1 and K5 also against each other, against the host
    AES cipher and against the committed keystream windows of the JAX
-   package's oracle; K3 against the scan path at d = 2^16;
+   package's oracle; K3 against the scan path at d = 2^16; K3 and K4 at
+   the shapes that stress their tensor-core tiling (ragged row and
+   ciphertext counts, a single ciphertext, odd byte offsets, odd n, sums
+   at their signed 32-bit bound); the three candidate cipher cores timed
+   alone on 2^24 blocks; K3 also at k = 1 beside k = 5;
 3. run the protocol at the tiny and toy parameters on the card and hold
    the SSP/CRS/VRS/proof sha256 digests against the committed golden
    file (made from the JAX package); stream the toy SSP to a file and back;
 4. run the protocol at release parameters through the package's own
    entry point with every launch counter reset just before, check that
    the verifier accepts, that a tampered proof is rejected, that two CRS
-   terms decrypt to 1 and alpha, and that K1..K4 ran;
+   terms decrypt to 1 and alpha, and that K1..K4 ran; then the same run
+   five more times for the spread of the stage walls;
 5. walk the stage-wise path at release parameters with the counters reset
    again: write CRS, VRS and proof to files, read them back, probe the
    reloaded CRS and proof, prove stage by stage from the reloaded CRS
@@ -79,7 +84,13 @@ PEAK_INT8 = 1979e12
 # (keystream_bitsliced.cu): 1,169.5 two-input gates a block (S-box 115 x 16
 # x 14 / 32, MixColumns 132 x 4 x 13 / 32, AddRoundKey 128 x 15 / 32, six
 # transposes of 480), of which a three-input LOP3 can take two at a time.
+# Conflict-free core of K3 and K4 (aes_core_cf.cuh): 4 to swap and whiten the
+# counter words (the nonce words are the same for every block), then 14
+# rounds of 4 words x 8: four byte permutes that are the lookup addresses, and
+# in a middle round one rotation and three XORs, in the last round three byte
+# merges and one XOR; its 224 shared-memory loads are not counted.
 TTABLE_OPS = 8 + 13 * 40 + 52 + 4
+CF_OPS = 4 + 14 * 4 * 8
 BITSLICED_OPS = (115 * 16 * 14 + 132 * 4 * 13 + 128 * 15 + 6 * 480) / 32 / 2
 
 
@@ -213,6 +224,31 @@ def phase_kernels(results: dict) -> None:
         worse("encrypt_b_fused", max_abs_err(
             eval_fused.encrypt_b_fused(key, off, sk, count, n, 92 * n),
             eval_fused.encrypt_b_fused_plain(key, off, sk, count, n, 92 * n)))
+    # K3's tiles: d not a multiple of 4, 32 or 128, one row, k = 8, odd offsets and n
+    for n3, k3, d3, off in ((6, 1, 1, 3), (5, 8, 131, 16 * 7 + 8), (7, 3, 1030, 5), (2, 2, 4099, 184)):
+        c3 = torch.randint(0, 1 << 32, (k3, d3), generator=gen).to(DEVICE)
+        worse("eval_mac_planes", max_abs_err(
+            eval_fused.eval_mac_planes(key, off, c3, n3, 92 * n3),
+            eval_fused.eval_mac_planes_plain(key, off, c3, n3, 92 * n3)))
+    # K4's tiles: counts off the block's 128 ciphertexts, one ciphertext,
+    # offsets 0 / 8 / odd / 16 * 7 + 8, n = 6 and odd n (a ragged last tile of draws)
+    for n4, count, off in ((6, 1, 0), (6, 130, 8), (7, 129, 13), (2, 5, 16 * 7 + 8),
+                           (19, 257, 8), (33, 3, 1)):
+        sk4 = torch.randint(0, 256, (n4, 88), generator=gen, dtype=torch.uint8).to(DEVICE)
+        worse("encrypt_b_fused", max_abs_err(
+            eval_fused.encrypt_b_fused(key, off, sk4, count, n4, 92 * n4),
+            eval_fused.encrypt_b_fused_plain(key, off, sk4, count, n4, 92 * n4)))
+    # both at the release width with every operand at its largest: the
+    # signed 32-bit sums at their bound
+    REL = release()
+    sk_max = torch.full((REL.n, 88), 255, dtype=torch.uint8, device=DEVICE)
+    worse("encrypt_b_fused", max_abs_err(
+        eval_fused.encrypt_b_fused(key, REL.ctr_s, sk_max, 130, REL.n, REL.ctr_ct),
+        eval_fused.encrypt_b_fused_plain(key, REL.ctr_s, sk_max, 130, REL.n, REL.ctr_ct)))
+    c_max = torch.full((5, 700), (1 << 32) - 1, dtype=torch.int64, device=DEVICE)
+    worse("eval_mac_planes", max_abs_err(
+        eval_fused.eval_mac_planes(key, REL.ctr_s, c_max, REL.n, REL.ctr_ct),
+        eval_fused.eval_mac_planes_plain(key, REL.ctr_s, c_max, REL.n, REL.ctr_ct)))
     for name, e in errs.items():
         print(f"phase kernels: {name} small shapes max_abs_err={e} (tolerance 0)")
 
@@ -257,16 +293,21 @@ def phase_kernels(results: dict) -> None:
             lambda: aes.keystream_fold_p_plain(ent_key.aes, (wb + pad) // 16, folds),
             bound(8 * folds, TTABLE_OPS * folds / 2))],
         "eval_mac_planes": [(
+            f"one lane of the prover's sweep: k=1 x {terms} terms, n={n}", 5,
+            lambda: eval_fused.eval_mac_planes(crs_key, P.ctr_s, coeffs[:1], n, P.ctr_ct),
+            lambda: eval_fused.eval_mac_planes_plain(crs_key, P.ctr_s, coeffs[:1], n, P.ctr_ct),
+            bound(8 * terms + 8 * 4 * n * 88, CF_OPS * stream_blocks,
+                  2 * 4 * terms * n * 88)), (
             f"the prover's sweep: k=5 x {terms} terms, n={n}", 5,
             lambda: eval_fused.eval_mac_planes(crs_key, P.ctr_s, coeffs, n, P.ctr_ct),
             lambda: eval_fused.eval_mac_planes_plain(crs_key, P.ctr_s, coeffs, n, P.ctr_ct),
-            bound(8 * coeffs.numel() + 8 * 4 * 5 * n * 88, TTABLE_OPS * stream_blocks,
+            bound(8 * coeffs.numel() + 8 * 4 * 5 * n * 88, CF_OPS * stream_blocks,
                   2 * 4 * 5 * terms * n * 88))],
         "encrypt_b_fused": [(
             f"setup's section: {terms} encryptions, n={n}", 3,
             lambda: eval_fused.encrypt_b_fused(crs_key, P.ctr_s, sk, terms, n, P.ctr_ct),
             lambda: eval_fused.encrypt_b_fused_plain(crs_key, P.ctr_s, sk, terms, n, P.ctr_ct),
-            bound(sk.numel() + 8 * terms * 88, TTABLE_OPS * stream_blocks,
+            bound(sk.numel() + 8 * terms * 88, CF_OPS * stream_blocks,
                   2 * 2 * terms * n * (88 * 89 // 2)))],
         "keystream_blocks_v1": [
             (f"setup's error draws: {e_blocks} blocks", 10,
@@ -285,13 +326,46 @@ def phase_kernels(results: dict) -> None:
             del want
             ms = cuda_ms(kern, reps)
             worse(name, err)
-            results[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, **bnd,
-                             "library_ms": None}
+            # an earlier shape of this kernel keeps its time beside the last one's
+            first = {"ms_first_shape": results[name]["ms"]} if name in results else {}
+            results[name] = {**first, "max_abs_err": errs[name], "ms": ms,
+                             "plain_ms": plain_ms, **bnd, "library_ms": None}
             print(f"phase kernels: {name} [{shape}] max_abs_err={err} (tolerance 0); "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
                   f"by {bnd['bound_by']}")
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with a reference (max_abs_err={e})")
+
+
+def phase_cores(label: str) -> None:
+    """The three candidate cipher cores of the fused kernels, each alone on
+    2^24 blocks, writing the 16 bytes of every block: the four-table core
+    (K1's kernel), the bitsliced register core (K5's kernel) and the
+    conflict-free table core that K3 and K4 use."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.ops import _build, aes, eval_fused, sampling
+
+    key = sampling.PRGKey(SEED, DEVICE)
+    k, nb = key.aes, 1 << 24
+    out32 = torch.empty(4 * nb, dtype=torch.int32, device=DEVICE)
+    out8 = out32.view(torch.uint8).reshape(nb, 16)
+    cores = {
+        "four-table core (aes_core.cuh, K1's kernel)": lambda: _build.launch(
+            "cls_keystream_words", k.tables32, k.rk32, k.nonce_lo, k.nonce_hi, 0, nb, out32),
+        "bitsliced register core (K5's kernel)": lambda: _build.launch(
+            "cls_keystream_blocks_v1", k.rk_planes32, k.nonce_lo, k.nonce_hi, 0, nb, out8),
+        "conflict-free table core (aes_core_cf.cuh)": lambda: _build.launch(
+            "cls_cipher_core_cf", k.tables32, k.rk_param, k.nonce_lo, k.nonce_hi, 0, nb, out32),
+    }
+    want = _build.bits32(aes.keystream_words_plain(k, 5, 4096))
+    check(max_abs_err(eval_fused.cipher_core_words(key, 5, 4096), want) == 0,
+          "the conflict-free core disagrees with the plain cipher")
+    for name, fn in cores.items():
+        fn()
+        ms = cuda_ms(fn, 10)
+        print(f"phase cores: {name}: {ms:.4f} ms for 2^24 blocks, "
+              f"{nb * 16 / ms / 1e6:.1f} GB/s [{label}]")
 
 
 def digests(run, P) -> dict:
@@ -375,6 +449,16 @@ def phase_release(label: str):
     check(dec_s0 == 1 and dec_as0 == int(run.vrs.alpha), "release: CRS decrypt probe")
     for name in RELEASE_PATH:
         check(launches[name] > 0, f"release: kernel {name} was not launched on the main path")
+    # the spread of the stage walls: the same run five more times
+    walls: dict = {}
+    for _ in range(5):
+        again = run_protocol(P, DEVICE, CRS_SEED, ENT_SEED)
+        check(again.verified, "release: a repeat did not verify")
+        for stage, sec in again.times.items():
+            walls.setdefault(stage, []).append(sec)
+        del again
+    for stage, secs in walls.items():
+        print(f"phase release: {stage} 5 repeats {', '.join(f'{x:.6f}' for x in secs)} s [{label}]")
     return run, launches
 
 
@@ -507,6 +591,7 @@ def main() -> int:
 
     results: dict = {}
     phase_kernels(results)
+    phase_cores(label)
     phase_golden()
     run, release_launches = phase_release(label)
     stagewise_launches = phase_stagewise(run, label)

@@ -81,6 +81,59 @@ def test_k4_encrypt_b_fused(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,k,d,off", [
+    (6, 1, 1, 3), (5, 8, 131, 16 * 7 + 8), (7, 3, 1030, 5), (2, 2, 4099, 184)])
+def test_k3_ragged_tiles(cuda, n, k, d, off):
+    """d not a multiple of 4, 32 or 128, one row, k = 8 planes, odd offsets and n."""
+    key = sampling.PRGKey(SEED, cuda)
+    rng = np.random.default_rng(d)
+    c = torch.from_numpy(rng.integers(0, 1 << 32, size=(k, d), dtype=np.int64)).to(cuda)
+    _eq(eval_fused.eval_mac_planes(key, off, c, n, 92 * n),
+        eval_fused.eval_mac_planes_plain(key, off, c, n, 92 * n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,count,off", [
+    (6, 1, 0), (6, 130, 8), (7, 129, 13), (2, 5, 16 * 7 + 8), (19, 257, 8), (33, 3, 1)])
+def test_k4_ragged_tiles(cuda, n, count, off):
+    """Counts off the block's 128 ciphertexts, one ciphertext, offsets 0 / 8 /
+    odd / 16 * 7 + 8, n = 6 and odd n (a ragged last tile of draws)."""
+    key = sampling.PRGKey(SEED, cuda)
+    rng = np.random.default_rng(count)
+    sk = torch.from_numpy(rng.integers(0, 256, size=(n, 88), dtype=np.uint8)).to(cuda)
+    _eq(eval_fused.encrypt_b_fused(key, off, sk, count, n, 92 * n),
+        eval_fused.encrypt_b_fused_plain(key, off, sk, count, n, 92 * n))
+
+
+@pytest.mark.gpu
+def test_k3_k4_sums_at_the_signed_bound(cuda):
+    """Release width, every operand at its largest: K4's per-digit sums reach
+    1470 * 88 * 255 * 15 and K3's 700 * 255^2, inside signed 32 bits; K4
+    refuses the first n whose sums would not be."""
+    key = sampling.PRGKey(SEED, cuda)
+    n = 1470
+    sk = torch.full((n, 88), 255, dtype=torch.uint8, device=cuda)
+    _eq(eval_fused.encrypt_b_fused(key, 8, sk, 130, n, 92 * n),
+        eval_fused.encrypt_b_fused_plain(key, 8, sk, 130, n, 92 * n))
+    c = torch.full((5, 700), 0xFFFFFFFF, dtype=torch.int64, device=cuda)
+    _eq(eval_fused.eval_mac_planes(key, 8, c, n, 92 * n),
+        eval_fused.eval_mac_planes_plain(key, 8, c, n, 92 * n))
+    big = torch.zeros((6380, 88), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="signed 32-bit"):
+        eval_fused.encrypt_b_fused(key, 0, big, 1, 6380, 92 * 6380)
+
+
+@pytest.mark.gpu
+def test_cipher_core_alone(cuda):
+    """The fused kernels' cipher core, run alone, gives K1's words."""
+    key = sampling.PRGKey(SEED, cuda)
+    for start, nblocks in ((0, 1), (WRAP, 5000), ((1 << 33) + 11, 4097)):
+        got = eval_fused.cipher_core_words(key, start, nblocks)
+        want = aes.keystream_words(key.aes, start, nblocks)
+        _eq(got.long() & 0xFFFFFFFF, want)
+
+
+@pytest.mark.gpu
 def test_protocol_matches_golden(cuda):
     golden = json.loads(GOLDEN.read_text())
     entry = golden["profiles"]["tiny"]
@@ -100,7 +153,7 @@ def test_protocol_matches_golden(cuda):
 def test_k3_beyond_the_int32_bound(cuda):
     """150,000 all-0xFFFFFFFF terms (d > 2^17): the sums reach ~150000 * 255 *
     127.5 > 2^32, past the TPU kernel's d * 255^2 < 2^31 bound; the kernel's
-    uint32 row segments add into int64 exactly."""
+    signed 32-bit row segments (32768 rows at most) add into int64 exactly."""
     key = sampling.PRGKey(SEED, cuda)
     n = 2
     c = torch.full((1, 150000), 0xFFFFFFFF, dtype=torch.int64, device=cuda)
