@@ -1,20 +1,7 @@
-// Shared AES-256-CTR device code of the four keystream kernels (K1..K4).
-//
-// Replaces the bitsliced cipher that the TPU kernels share
-// (c_lwe_snarks_tpu/ops/aes_pallas.py:_v2_group_words and
-// ops/eval_fused.py:_aes_pair_tile).  Here the cipher is the textbook
-// T-table form: four 1 KiB tables and the S-box live in shared memory,
-// built on the host from oracle.aes.sbox(), with the standard round keys
-// of oracle.aes.key_expansion (no folded S-box constant).  One round is
-// 16 table loads and 16 XORs per 16-byte block, so the cipher is bound by
-// the rate of shared-memory loads; a bitsliced LOP3 circuit is later work.
-//
-// Block layout (reference src/aes.c:104-144): nonce (8 bytes LE) ||
-// counter (8 bytes LE); the keystream is E_k(block) for consecutive
-// 64-bit counters.  The state words of the T-table form are big-endian
-// columns, so the LE nonce/counter words are byte-swapped on the way in
-// and the output columns byte-swapped on the way out: aes256_ctr returns
-// the block's four little-endian keystream words.
+// Device helpers shared by the keystream kernels K1..K4: the byte swap of
+// the cipher's big-endian state words, the fold of K2 (p = 2^32 - 5; exact
+// for every pair of words, as ops/modp.py:fold64_mod_p is), and small
+// host-side grid arithmetic.  The cipher itself is aes_core_cf.cuh.
 #pragma once
 
 #include <cstdint>
@@ -24,79 +11,20 @@ namespace cls {
 
 constexpr uint32_t kP = 0xFFFFFFFBu;  // p = 2^32 - 5
 
-struct AesTables {
-  uint32_t te[4][256];  // Te0..Te3
-  uint32_t sbox[256];
-  uint32_t rk[60];      // big-endian round-key words
-};
-
-// tables: Te0..Te3 then the S-box (1280 words); rk: 60 words.  Called by
-// every thread of a 1-D block; the caller synchronizes before use.
-__device__ __forceinline__ void load_tables(AesTables& s, const uint32_t* __restrict__ tables,
-                                            const uint32_t* __restrict__ rk) {
-  for (int i = threadIdx.x; i < 1024; i += blockDim.x) s.te[i >> 8][i & 255] = tables[i];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s.sbox[i] = tables[1024 + i];
-  for (int i = threadIdx.x; i < 60; i += blockDim.x) s.rk[i] = rk[i];
-}
-
 __device__ __forceinline__ uint32_t bswap32(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
 
-// Keystream block of counter `ctr`: its four LE words.
-__device__ __forceinline__ uint4 aes256_ctr(const AesTables& s, uint32_t nonce_lo,
-                                            uint32_t nonce_hi, uint64_t ctr) {
-  uint32_t s0 = bswap32(nonce_lo) ^ s.rk[0];
-  uint32_t s1 = bswap32(nonce_hi) ^ s.rk[1];
-  uint32_t s2 = bswap32(static_cast<uint32_t>(ctr)) ^ s.rk[2];
-  uint32_t s3 = bswap32(static_cast<uint32_t>(ctr >> 32)) ^ s.rk[3];
-#pragma unroll
-  for (int r = 1; r < 14; ++r) {
-    const uint32_t t0 = s.te[0][s0 >> 24] ^ s.te[1][(s1 >> 16) & 255] ^
-                        s.te[2][(s2 >> 8) & 255] ^ s.te[3][s3 & 255] ^ s.rk[4 * r];
-    const uint32_t t1 = s.te[0][s1 >> 24] ^ s.te[1][(s2 >> 16) & 255] ^
-                        s.te[2][(s3 >> 8) & 255] ^ s.te[3][s0 & 255] ^ s.rk[4 * r + 1];
-    const uint32_t t2 = s.te[0][s2 >> 24] ^ s.te[1][(s3 >> 16) & 255] ^
-                        s.te[2][(s0 >> 8) & 255] ^ s.te[3][s1 & 255] ^ s.rk[4 * r + 2];
-    const uint32_t t3 = s.te[0][s3 >> 24] ^ s.te[1][(s0 >> 16) & 255] ^
-                        s.te[2][(s1 >> 8) & 255] ^ s.te[3][s2 & 255] ^ s.rk[4 * r + 3];
-    s0 = t0;
-    s1 = t1;
-    s2 = t2;
-    s3 = t3;
-  }
-  const uint32_t* sb = s.sbox;
-  const uint32_t o0 = (sb[s0 >> 24] << 24) ^ (sb[(s1 >> 16) & 255] << 16) ^
-                      (sb[(s2 >> 8) & 255] << 8) ^ sb[s3 & 255] ^ s.rk[56];
-  const uint32_t o1 = (sb[s1 >> 24] << 24) ^ (sb[(s2 >> 16) & 255] << 16) ^
-                      (sb[(s3 >> 8) & 255] << 8) ^ sb[s0 & 255] ^ s.rk[57];
-  const uint32_t o2 = (sb[s2 >> 24] << 24) ^ (sb[(s3 >> 16) & 255] << 16) ^
-                      (sb[(s0 >> 8) & 255] << 8) ^ sb[s1 & 255] ^ s.rk[58];
-  const uint32_t o3 = (sb[s3 >> 24] << 24) ^ (sb[(s0 >> 16) & 255] << 16) ^
-                      (sb[(s1 >> 8) & 255] << 8) ^ sb[s2 & 255] ^ s.rk[59];
-  return make_uint4(bswap32(o0), bswap32(o1), bswap32(o2), bswap32(o3));
-}
-
-// (a + b) mod p when at least one operand is < p (ops/modp.py:addmod_p).
-__device__ __forceinline__ uint32_t addmod_p(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;
-  if (s < a) s += 5u;  // wrapped: 2^32 = 5 (mod p)
-  return s >= kP ? s - kP : s;
-}
-
-// (a + b) mod p for two arbitrary words, safe in the double-wrap window
-// a + b in [2^33 - 5, 2^33 - 2] (ops/modp.py:add_u32_mod_p).
-__device__ __forceinline__ uint32_t add_u32_mod_p(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;
-  const uint32_t k = s < a ? 5u : 0u;
-  s = s >= kP ? s - kP : s;
-  return addmod_p(s, k);
-}
-
-// (hi * 2^32 + lo) mod p (ops/modp.py:fold64_mod_p).
+// (hi * 2^32 + lo) mod p, the function of ops/modp.py:fold64_mod_p, in two
+// multiply-adds.  2^32 = 5 (mod p), so the value is t = 5 * hi + lo, one
+// 32 x 32 -> 64 bit multiply-add with th = t >> 32 <= 5, and again
+// r = tl + 5 * th with 5 * th <= 25.  If that sum wraps, the wrapped r is
+// <= 24 and stands for r + 2^32 = r + 5 <= 29 < p; if not, r < 2^32 < 2p and
+// one conditional subtraction brings it under p.
 __device__ __forceinline__ uint32_t fold64_mod_p(uint32_t hi, uint32_t lo) {
-  const uint32_t s4 = hi << 2;
-  const uint32_t lo5 = s4 + hi;                        // low word of 5 * hi
-  const uint32_t c = (hi >> 30) + (lo5 < s4 ? 1u : 0u);  // its carry word, <= 4
-  return addmod_p(add_u32_mod_p(lo, lo5), 5u * c);
+  const uint64_t t = static_cast<uint64_t>(hi) * 5u + lo;
+  const uint32_t tl = static_cast<uint32_t>(t);
+  uint32_t r = tl + 5u * static_cast<uint32_t>(t >> 32);
+  if (r < tl) r += 5u;
+  return r >= kP ? r - kP : r;
 }
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }

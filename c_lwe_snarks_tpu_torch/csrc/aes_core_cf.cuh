@@ -1,12 +1,17 @@
-// Conflict-free T-table AES-256-CTR core of the fused kernels K3 and K4
-// (eval_fused.cu is its only user; K1 and K2 keep aes_core.cuh).
+// Conflict-free T-table AES-256-CTR core of every table kernel of the port:
+// K1 and K2 (keystream.cu), K3 and K4 (eval_fused.cu).
 //
-// The four-table core of aes_core.cuh indexes 1 KiB tables with random
-// bytes, so the 32 loads of a warp fall on the 32 shared-memory banks at
-// random and every load is replayed a few times; and each lookup costs
-// four integer operations of address arithmetic (shift, mask, scale, add
-// the base), which is what bounds that core on this card: the integer
-// pipe issues a warp's operation every second clock.
+// Block layout (reference src/aes.c:104-144): nonce (8 bytes LE) || counter
+// (8 bytes LE); the keystream is E_k(block) for consecutive 64-bit counters.
+// The state words of the T-table form are big-endian columns, so the LE
+// nonce and counter words are byte-swapped on the way in.
+//
+// A textbook core indexes four 1 KiB tables with random bytes, so the 32
+// loads of a warp fall on the 32 shared-memory banks at random and every
+// load is replayed a few times; and each lookup costs four integer
+// operations of address arithmetic (shift, mask, scale, add the base),
+// which is what bounds such a core on this card: the integer pipe issues a
+// warp's operation every second clock.
 //
 // Here entry x of the table is 256 bytes: 32 copies of Te0[x], one per
 // lane, then 32 copies of Te2[x].  Lane L of a warp reads only word L (or
@@ -22,13 +27,13 @@
 // Te0[a] ^ Te2[c] ^ rk ^ ror8(Te0[b] ^ Te2[d]).  The last round takes S[x]
 // from the middle bytes of Te0[x] = (2S, S, S, 3S), so no S-box table is
 // needed.  The round keys are a kernel parameter: they sit in the constant
-// bank and reach the XORs as instruction operands, with no load (the old
-// core read 60 shared-memory words a block for them).  The last round key
+// bank and reach the XORs as instruction operands, with no load (a
+// table core reads 60 shared-memory words a block for them).  The last round key
 // comes byte-swapped, so the output words are assembled little-endian.
 //
 // Per 16-byte block: 224 shared-memory loads (each one issue) and about
 // 8 integer operations a state word and round (4 addresses, 1 rotation, 3
-// XORs), ~450 in all, against the four-table core's 284 loads and ~900.
+// XORs), ~450 in all, against a four-table core's 284 loads and ~900.
 // NB blocks are encrypted side by side in one thread for instruction-level
 // parallelism: the 16 loads of a round depend on the whole previous round.
 //
@@ -46,6 +51,8 @@
 
 #include "aes_core.cuh"
 
+#include <cstring>
+
 namespace cls {
 
 constexpr uint32_t kCfTableAddr = 0x10000;   // the table's byte address in the shared window
@@ -55,6 +62,13 @@ struct RoundKeys {
   uint32_t w[56];       // big-endian words of round keys 0..13
   uint32_t last_le[4];  // round key 14, little-endian (byte-swapped) words
 };
+
+// rk_host: 60 words on the host in RoundKeys' layout (ops/aes.py:AESKey.rk_param).
+inline RoundKeys round_keys(const void* rk_host) {
+  RoundKeys rk;
+  std::memcpy(&rk, rk_host, sizeof(rk));
+  return rk;
+}
 
 // Generic pointer to byte 0 of the block's shared-memory window, from the
 // start of its dynamic shared memory.  The bytes between that start and the

@@ -59,8 +59,6 @@
 // mma.sync on 8-bit operands, the rest.
 #include "aes_core_cf.cuh"
 
-#include <cstring>
-
 using namespace cls;
 
 namespace {
@@ -76,27 +74,6 @@ __device__ __forceinline__ void mma_u8(int32_t (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---- the cipher core alone (a measurement, not a kernel of the port) -----
-constexpr int kCoreThreads = 1024;  // one block an SM: the table's window takes 128 KiB
-
-__global__ void __launch_bounds__(kCoreThreads)
-cipher_core_kernel(const uint32_t* __restrict__ tables, const __grid_constant__ RoundKeys rk,
-                   uint32_t nonce_lo, uint32_t nonce_hi, uint64_t start, int64_t nblocks,
-                   uint4* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  cf_load_table(cf_window(smem, 0), tables);
-  __syncthreads();
-  const uint32_t lane_base = cf_lane_base();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kCoreThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kCoreThreads + threadIdx.x; i < nblocks;
-       i += stride) {
-    const uint64_t ctr[1] = {start + static_cast<uint64_t>(i)};
-    uint4 w[1];
-    aes256_ctr_cf<1>(lane_base, rk, nonce_lo, nonce_hi, ctr, w);
-    out[i] = w[0];
-  }
 }
 
 // ---- K3 ------------------------------------------------------------------
@@ -380,12 +357,6 @@ encrypt_kernel(const uint32_t* __restrict__ tables, const __grid_constant__ Roun
   }
 }
 
-RoundKeys round_keys(const void* rk_host) {
-  RoundKeys rk;
-  std::memcpy(&rk, rk_host, sizeof(rk));
-  return rk;
-}
-
 }  // namespace
 
 // rk_host: 60 words on the host, RoundKeys' layout.  out: int64 [4, k, n, 88], zeroed.
@@ -433,20 +404,5 @@ extern "C" int cls_encrypt_b_fused(const void* tables, const void* rk_host, uint
       static_cast<const uint32_t*>(tables), round_keys(rk_host), nonce_lo, nonce_hi, offset,
       static_cast<const uint8_t*>(sk), count, n, split, static_cast<int32_t*>(out_lo),
       static_cast<int32_t*>(out_hi));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The conflict-free core alone: uint32 [4 * nblocks] LE keystream words of
-// counters start.., one block a thread.
-extern "C" int cls_cipher_core_cf(const void* tables, const void* rk_host, uint32_t nonce_lo,
-                                  uint32_t nonce_hi, uint64_t start, int64_t nblocks, void* out,
-                                  void* stream) {
-  int bytes = 0;
-  const cudaError_t err = cf_configure(cipher_core_kernel, 0, 0, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cipher_core_kernel<<<grid_1d(nblocks, kCoreThreads, 132), kCoreThreads, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(tables), round_keys(rk_host), nonce_lo, nonce_hi, start,
-      nblocks, static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

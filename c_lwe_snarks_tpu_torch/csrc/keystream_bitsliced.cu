@@ -6,7 +6,7 @@
 // transpose, 14 rounds of the 115-gate Boyar-Peralta S-box with the affine
 // constant 0x63 folded into round keys 1..14, ShiftRows, MixColumns on
 // planes, and a transpose back to bytes.  It shares nothing with the
-// T-table core of aes_core.cuh but the host key schedule.
+// T-table core of aes_core_cf.cuh but the host key schedule.
 //
 // Layout chosen for this card, not the TPU's [16, W] sublane planes: one
 // thread owns one group of 32 consecutive counters and keeps the whole

@@ -59,7 +59,8 @@ def gen_v(
 
     mask: 0/1 [rows] t-gate per row.  Returns (v int64 [rows, d], the
     mod-p sum of the gated rows int64 [d]).  A row is 8d stream bytes =
-    d/2 AES blocks; each tile of rows is one K2 launch.
+    d/2 AES blocks; each tile of rows is one K2 launch, which writes the
+    tile into v where it lives.
     """
     rows = mask.shape[0]
     assert d % 2 == 0, d
@@ -67,8 +68,8 @@ def gen_v(
     t = torch.zeros(d, dtype=torch.int64, device=key.device)
     for lo in range(0, rows, TILE):
         hi = min(rows, lo + TILE)
-        vi = sampling.keystream_fold_p(key, ctr0 + lo * (d // 2), (hi - lo) * d)
-        v[lo:hi] = vi.reshape(hi - lo, d)
+        sampling.keystream_fold_p(
+            key, ctr0 + lo * (d // 2), (hi - lo) * d, out=v[lo:hi].view(-1))
         t = (t + modp.gated_rowsum_mod_p(v[lo:hi], mask[lo:hi])) % modp.P
     return v, t
 

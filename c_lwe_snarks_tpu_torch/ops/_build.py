@@ -31,13 +31,12 @@ NVCC_FLAGS = [
 # "u64", "i64"; every function takes the CUDA stream last and returns a CUDA
 # error code (of the launch, or of setting a kernel attribute) as int.
 SIGNATURES = {
-    "cls_keystream_words": ("p", "p", "u32", "u32", "u64", "i64", "p"),
-    "cls_keystream_fold_p": ("p", "p", "u32", "u32", "u64", "i64", "p"),
+    "cls_keystream_blocks": ("p", "h", "u32", "u32", "u64", "i64", "p"),
+    "cls_keystream_fold_p": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_eval_mac_planes": (
         "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "i64", "p"),
     "cls_encrypt_b_fused": (
         "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "p", "p"),
-    "cls_cipher_core_cf": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_keystream_blocks_v1": ("p", "u32", "u32", "u64", "i64", "p"),
 }
 

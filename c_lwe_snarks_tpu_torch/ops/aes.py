@@ -1,20 +1,27 @@
-"""AES-256-CTR keystream: kernels K1 (raw words), K2 (mod-p folds) and K5
-(the bitsliced raw keystream, ``keystream_blocks(version=1)``).
+"""AES-256-CTR keystream: kernels K1 (raw stream bytes), K2 (mod-p folds)
+and K5 (the bitsliced raw keystream, ``keystream_blocks(version=1)``).
 
 Port of ``c_lwe_snarks_tpu/ops/aes_pallas.py`` (``_kernel_v2``,
 ``_kernel_v2_fold`` and ``_kernel``) and ``ops/aes_tpu.py``.  The block
 layout is the reference's ``nonce (8 B LE) || ctr64 (8 B LE)`` and the
 keystream is the AES-256 encryption of consecutive counters.
 
-K1 and K2 use the textbook T-table cipher (``csrc/aes_core.cuh``) with
-the standard round keys from ``utils/aes_host.key_expansion``; their
-plain versions run the same T-table rounds as torch gathers.  K5
-(``csrc/keystream_bitsliced.cu``) is a table-free bitsliced cipher: 128
-bit planes per group of 32 blocks, the 115-gate S-box of ``ops/sbox_bp.py``
-and round keys as 0 / ~0 plane masks with the S-box constant 0x63 folded
-into rounds 1..14; its plain version runs the same circuit on tensors.
-Words are int64 tensors holding [0, 2^32); the kernels see them as int32
-bit views.
+K1 and K2 (``csrc/keystream.cu``) use the conflict-free T-table cipher of
+``csrc/aes_core_cf.cuh`` (one replicated Te0/Te2 table in shared memory,
+the standard round keys from ``utils/aes_host.key_expansion`` as a kernel
+parameter); their plain versions run the textbook four-table rounds as
+torch gathers.  K5 (``csrc/keystream_bitsliced.cu``) is a table-free
+bitsliced cipher: 128 bit planes per group of 32 blocks, the 115-gate
+S-box of ``ops/sbox_bp.py`` and round keys as 0 / ~0 plane masks with the
+S-box constant 0x63 folded into rounds 1..14; its plain version runs the
+same circuit on tensors.
+
+Each kernel writes what its callers read: K1 and K5 the stream's bytes,
+uint8 ``[nblocks, 16]`` (``keystream_words`` is the same memory viewed as
+words), K2 int64 words in [0, 2^32), the type of the mod-p glue, straight
+into the caller's tensor if it passes ``out=``.  No torch pass follows a
+kernel, with one exception: ``keystream_words`` widens K1's words to int64
+after the launch.  Nothing in the protocol calls it on a CUDA key.
 
 Each wrapper takes the plain version for a key on the CPU and launches
 the CUDA kernel for a key on a CUDA device; ``LAUNCHES`` counts the
@@ -45,12 +52,11 @@ class AESKey:
     rk: torch.Tensor  # int64 [60]: big-endian round-key words
     te: torch.Tensor  # int64 [4, 256]: T-tables Te0..Te3
     sbox: torch.Tensor  # int64 [256]
-    tables32: torch.Tensor  # int32 [1280]: Te0..Te3 then the S-box (kernels)
-    rk32: torch.Tensor  # int32 [60] (kernels)
+    tables32: torch.Tensor  # int32 [1280]: Te0..Te3 then the S-box (kernels K1..K4)
     rk_planes: torch.Tensor  # int64 [15, 128]: 0 / 2^32-1 masks, plane 8 * byte + bit
     rk_planes32: torch.Tensor  # int32 [15, 128] (kernel K5)
     # host bytes of 60 uint32: rk[0..55], then round key 14 as little-endian
-    # words (the kernel parameter of the fused kernels K3 and K4)
+    # words (the kernel parameter of K1..K4)
     rk_param: bytes
 
     @property
@@ -99,7 +105,6 @@ def make_key(seed: bytes, device) -> AESKey:
         te=tab64[:4],
         sbox=tab64[4],
         tables32=torch.tensor(tables.reshape(-1).view(np.int32), device=device),
-        rk32=torch.tensor(rk.view(np.int32), device=device),
         rk_planes=torch.tensor(planes.astype(np.int64), device=device),
         rk_planes32=torch.tensor(planes.view(np.int32), device=device),
         rk_param=rk[:56].astype("<u4").tobytes() + rks[14].tobytes(),
@@ -170,11 +175,30 @@ def keystream_bytes_plain(key: AESKey, byte_offset: int, nbytes: int) -> torch.T
     return words_to_bytes(words)[skip : skip + nbytes]
 
 
-def keystream_fold_p_plain(key: AESKey, start_ctr: int, npairs: int) -> torch.Tensor:
-    """int64 [npairs]: (w[2k+1] * 2^32 + w[2k]) mod p over the stream."""
+def check_fold_out(out: torch.Tensor, npairs: int, device: torch.device) -> None:
+    """Raise unless ``out`` can take K2's folds in place: int64 [npairs],
+    contiguous, on the key's device, 16-byte aligned (the kernel stores 16
+    bytes an AES block).  No quiet copy is made for any other tensor."""
+    if out.dtype != torch.int64 or tuple(out.shape) != (npairs,):
+        raise ValueError(f"out: expected int64 ({npairs},), got {out.dtype} {tuple(out.shape)}")
+    if out.device != device or not out.is_contiguous():
+        raise ValueError(f"out: expected a contiguous tensor on {device}, got one on "
+                         f"{out.device} with strides {out.stride()}")
+    if out.data_ptr() % 16:
+        raise ValueError("out: expected a 16-byte aligned tensor")
+
+
+def keystream_fold_p_plain(
+    key: AESKey, start_ctr: int, npairs: int, out: torch.Tensor | None = None
+) -> torch.Tensor:
+    """int64 [npairs]: (w[2k+1] * 2^32 + w[2k]) mod p over the stream,
+    written into ``out`` if given."""
+    if out is not None:
+        check_fold_out(out, npairs, key.device)
     w = keystream_words_plain(key, start_ctr, -(-npairs // 2))[: 2 * npairs]
     w = w.reshape(npairs, 2)
-    return (w[:, 1] * 5 + w[:, 0]) % ((1 << 32) - 5)
+    folds = (w[:, 1] * 5 + w[:, 0]) % ((1 << 32) - 5)
+    return folds if out is None else out.copy_(folds)
 
 
 def keystream_blocks_v1_plain(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
@@ -236,43 +260,65 @@ def _check_ctr(start_ctr: int, count: int) -> None:
         raise ValueError((start_ctr, count))
 
 
-def keystream_words(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
-    """int64 [4 * nblocks] LE keystream words for counters start..start+n.
-
-    K1: on a CUDA key, one kernel launch (``csrc/keystream.cu``)."""
-    _check_ctr(start_ctr, nblocks)
-    if key.device.type == "cpu":
-        return keystream_words_plain(key, start_ctr, nblocks)
+def _require_cuda(key: AESKey) -> None:
     if key.device.type != "cuda":
         raise ValueError(f"unsupported device {key.device}")
-    out = torch.empty(4 * nblocks, dtype=torch.int32, device=key.device)
+
+
+def keystream_blocks_v2(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
+    """uint8 [nblocks, 16] keystream bytes of counters start..start+n.
+
+    K1: on a CUDA key, one kernel launch (``csrc/keystream.cu``), which
+    writes the stream bytes themselves."""
+    _check_ctr(start_ctr, nblocks)
+    if key.device.type == "cpu":
+        return words_to_bytes(_encrypt_ctr_plain(key, start_ctr, nblocks))
+    _require_cuda(key)
+    out = torch.empty(nblocks, 16, dtype=torch.uint8, device=key.device)
     if nblocks:
         _build.launch(
-            "cls_keystream_words", key.tables32, key.rk32, key.nonce_lo,
+            "cls_keystream_blocks", key.tables32, key.rk_param, key.nonce_lo,
             key.nonce_hi, start_ctr, nblocks, out,
         )
         LAUNCHES["keystream_words"] += 1
-    return _build.words64(out)
+    return out
 
 
-def keystream_fold_p(key: AESKey, start_ctr: int, npairs: int) -> torch.Tensor:
+def keystream_words(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
+    """int64 [4 * nblocks] LE keystream words for counters start..start+n.
+
+    K1's bytes viewed as words, then widened by a torch pass: the one
+    wrapper with a pass behind its kernel.  It is kept for callers that want
+    words; the protocol reads bytes (``keystream_blocks``)."""
+    if key.device.type == "cpu":
+        _check_ctr(start_ctr, nblocks)
+        return keystream_words_plain(key, start_ctr, nblocks)
+    return _build.words64(keystream_blocks_v2(key, start_ctr, nblocks).view(torch.int32).reshape(-1))
+
+
+def keystream_fold_p(
+    key: AESKey, start_ctr: int, npairs: int, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """int64 [npairs] mod-p folds of consecutive u64-LE stream words.
 
     K2: on a CUDA key the fold runs inside the cipher kernel, so the raw
-    keystream never reaches device memory."""
+    keystream never reaches device memory, and the kernel writes the int64
+    words themselves.  ``out``, if given, receives them in place (see
+    ``check_fold_out``; anything else raises) and is returned."""
     _check_ctr(start_ctr, npairs)
     if key.device.type == "cpu":
-        return keystream_fold_p_plain(key, start_ctr, npairs)
-    if key.device.type != "cuda":
-        raise ValueError(f"unsupported device {key.device}")
-    out = torch.empty(npairs, dtype=torch.int32, device=key.device)
+        return keystream_fold_p_plain(key, start_ctr, npairs, out)
+    _require_cuda(key)
+    if out is None:
+        out = torch.empty(npairs, dtype=torch.int64, device=key.device)
+    check_fold_out(out, npairs, key.device)
     if npairs:
         _build.launch(
-            "cls_keystream_fold_p", key.tables32, key.rk32, key.nonce_lo,
+            "cls_keystream_fold_p", key.tables32, key.rk_param, key.nonce_lo,
             key.nonce_hi, start_ctr, npairs, out,
         )
         LAUNCHES["keystream_fold_p"] += 1
-    return _build.words64(out)
+    return out
 
 
 def keystream_blocks_v1(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
@@ -284,8 +330,7 @@ def keystream_blocks_v1(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tens
     _check_ctr(start_ctr, nblocks)
     if key.device.type == "cpu":
         return keystream_blocks_v1_plain(key, start_ctr, nblocks)
-    if key.device.type != "cuda":
-        raise ValueError(f"unsupported device {key.device}")
+    _require_cuda(key)
     out = torch.empty(nblocks, 16, dtype=torch.uint8, device=key.device)
     if nblocks:
         _build.launch(
@@ -301,11 +346,10 @@ def keystream_blocks(
 ) -> torch.Tensor:
     """uint8 [nblocks, 16] keystream bytes for counters [start, start+n).
 
-    ``version == 2`` reads the T-table kernel K1 (``keystream_words``);
-    any other version runs the bitsliced kernel K5.  Both give the same
-    bytes."""
+    ``version == 2`` runs the T-table kernel K1; any other version runs
+    the bitsliced kernel K5.  Both give the same bytes."""
     if version == 2:
-        return words_to_bytes(keystream_words(key, start_ctr, nblocks).reshape(nblocks, 4))
+        return keystream_blocks_v2(key, start_ctr, nblocks)
     return keystream_blocks_v1(key, start_ctr, nblocks)
 
 

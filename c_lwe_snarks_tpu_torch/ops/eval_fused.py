@@ -155,21 +155,3 @@ def encrypt_b_fused(
         )
         LAUNCHES["encrypt_b_fused"] += 1
     return _enc_epilogue(_build.words64(v_lo), _build.words64(v_hi))
-
-
-def cipher_core_words(key: sampling.PRGKey, start_ctr: int, nblocks: int) -> torch.Tensor:
-    """int32 [4 * nblocks] bit views of the LE keystream words of counters
-    start.., from the fused kernels' cipher core run alone.  A measurement
-    of the core (``chip_smoke.py`` times it beside K1's and K5's); nothing
-    in the protocol calls it, and it exists only on a CUDA device."""
-    if key.device.type != "cuda":
-        raise ValueError(f"the cipher core runs only on a CUDA device, got {key.device}")
-    if nblocks < 0 or start_ctr < 0:
-        raise ValueError((start_ctr, nblocks))
-    out = torch.empty(4 * nblocks, dtype=torch.int32, device=key.device)
-    if nblocks:
-        _build.launch(
-            "cls_cipher_core_cf", key.aes.tables32, key.aes.rk_param, key.aes.nonce_lo,
-            key.aes.nonce_hi, start_ctr, nblocks, out,
-        )
-    return out

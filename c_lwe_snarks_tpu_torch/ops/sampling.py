@@ -67,17 +67,20 @@ def keystream_blocks(key: PRGKey, start_ctr: int, nblocks: int) -> torch.Tensor:
     return aes.keystream_blocks(key.aes, start_ctr, nblocks)
 
 
-def keystream_fold_p(key: PRGKey, start_ctr: int, npairs: int) -> torch.Tensor:
-    """int64 [npairs]: (word[2k+1] * 2^32 + word[2k]) mod p (K2)."""
-    return aes.keystream_fold_p(key.aes, start_ctr, npairs)
+def keystream_fold_p(
+    key: PRGKey, start_ctr: int, npairs: int, out: torch.Tensor | None = None
+) -> torch.Tensor:
+    """int64 [npairs]: (word[2k+1] * 2^32 + word[2k]) mod p (K2), written
+    into ``out`` if given (``aes.check_fold_out``)."""
+    return aes.keystream_fold_p(key.aes, start_ctr, npairs, out)
 
 
 def keystream_bytes(key: PRGKey, byte_offset: int, nbytes: int) -> torch.Tensor:
-    """uint8 keystream bytes [byte_offset, byte_offset + nbytes)."""
+    """uint8 keystream bytes [byte_offset, byte_offset + nbytes): a slice
+    of the enclosing AES blocks (K1)."""
     skip = byte_offset % 16
     nblocks = -(-(skip + nbytes) // 16)
-    words = keystream_words(key, byte_offset // 16, nblocks)
-    return aes.words_to_bytes(words)[skip : skip + nbytes]
+    return keystream_blocks(key, byte_offset // 16, nblocks).reshape(-1)[skip : skip + nbytes]
 
 
 def sample_digit_rows(
@@ -91,19 +94,10 @@ def sample_digit_rows(
     """``count`` sequential PRG draws as uint8 digit rows [count, ndigits].
 
     Each draw consumes exactly ``draw_bytes`` stream bytes (the
-    reference's floor-byte discipline) and keeps its low ``ndigits``.
-    A word-aligned offset takes the word path (bytes extracted from whole
-    rows of words); any other offset the byte path.  Both read the same
-    bytes.
+    reference's floor-byte discipline) and keeps its low ``ndigits``: the
+    stream's bytes sliced and reshaped, at any alignment.
     """
-    if byte_offset % 4 == 0 and draw_bytes % 4 == 0:
-        skip = byte_offset % 16
-        nblocks = -(-(skip + count * draw_bytes) // 16)
-        words = keystream_words(key, byte_offset // 16, nblocks)
-        rows_w = words[skip // 4 : skip // 4 + count * draw_bytes // 4]
-        rows = aes.words_to_bytes(rows_w.reshape(count, draw_bytes // 4))
-    else:
-        rows = keystream_bytes(key, byte_offset, count * draw_bytes).reshape(count, draw_bytes)
+    rows = keystream_bytes(key, byte_offset, count * draw_bytes).reshape(count, draw_bytes)
     return rows[:, :ndigits].contiguous()
 
 

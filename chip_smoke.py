@@ -11,13 +11,17 @@ non-zero, and only a full pass prints the final JSON line):
    bit-exact, at small shapes (AES-block leads 0 and 8, a counter
    low-word wrap, a counter above 2^32, ragged counts, k = 5 lanes) and at
    the largest shape the release main path gives it, where both are timed
-   with CUDA events; K1 and K5 also against each other, against the host
-   AES cipher and against the committed keystream windows of the JAX
-   package's oracle; K3 against the scan path at d = 2^16; K3 and K4 at
-   the shapes that stress their tensor-core tiling (ragged row and
-   ciphertext counts, a single ciphertext, odd byte offsets, odd n, sums
-   at their signed 32-bit bound); the three candidate cipher cores timed
-   alone on 2^24 blocks; K3 also at k = 1 beside k = 5;
+   with CUDA events; K1 (as bytes, at 1, 2 and 171 blocks too) and K5 also
+   against each other, against the host AES cipher and against the
+   committed keystream windows of the JAX package's oracle; K2 with
+   ``out=`` into a slice guarded by sentinels; K3 against the scan path at
+   d = 2^16; K3 and K4 at the shapes that stress their tensor-core tiling
+   (ragged row and ciphertext counts, a single ciphertext, odd byte
+   offsets, odd n, sums at their signed 32-bit bound); the two cipher
+   cores (K1's table core, K5's bitsliced one) timed on 2^24 blocks; K3
+   also at k = 1 beside k = 5; K1 also at a scan tile's size beside
+   setup's error draws; one ``torch.profiler`` pass over random_ssp at
+   release parameters and over K1's launches (device-side durations);
 3. run the protocol at the tiny and toy parameters on the card and hold
    the SSP/CRS/VRS/proof sha256 digests against the committed golden
    file (made from the JAX package); stream the toy SSP to a file and back;
@@ -77,20 +81,21 @@ STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1")
 PEAK_BYTES = 3.35e12
 PEAK_INT32 = 67e12 / 4
 PEAK_INT8 = 1979e12
-# 32-bit operations per 16-byte AES block.  T-table core (aes_core.cuh): 8 to
-# swap and whiten the input, 13 rounds of 4 words x (6 to extract the index
-# bytes + 4 XORs), a last round of 4 x (6 + 3 shifts + 4 XORs) and 4 swaps
-# out; its 284 shared-memory loads are not counted.  Bitsliced core
+# 32-bit operations per 16-byte AES block.  Bitsliced core
 # (keystream_bitsliced.cu): 1,169.5 two-input gates a block (S-box 115 x 16
 # x 14 / 32, MixColumns 132 x 4 x 13 / 32, AddRoundKey 128 x 15 / 32, six
 # transposes of 480), of which a three-input LOP3 can take two at a time.
-# Conflict-free core of K3 and K4 (aes_core_cf.cuh): 4 to swap and whiten the
+# Conflict-free core of K1..K4 (aes_core_cf.cuh): 4 to swap and whiten the
 # counter words (the nonce words are the same for every block), then 14
 # rounds of 4 words x 8: four byte permutes that are the lookup addresses, and
 # in a middle round one rotation and three XORs, in the last round three byte
 # merges and one XOR; its 224 shared-memory loads are not counted.
-TTABLE_OPS = 8 + 13 * 40 + 52 + 4
+# K2's fold (aes_core.cuh:fold64_mod_p), per 8-byte draw, 7: the wide
+# multiply-add t = 5 * hi + lo (counted 2: it fills both result words), the
+# multiply-add r = tl + 5 * th, a carry test and a conditional + 5, a
+# compare with p and a conditional - p.
 CF_OPS = 4 + 14 * 4 * 8
+FOLD_OPS = 2 + 1 + 2 + 2
 BITSLICED_OPS = (115 * 16 * 14 + 132 * 4 * 13 + 128 * 15 + 6 * 480) / 32 / 2
 
 
@@ -181,14 +186,27 @@ def phase_kernels(results: dict) -> None:
     def worse(name, err):
         errs[name] = max(errs[name], err)
 
-    # K1: counter low-word wrap, then the host cipher on one window
-    start = (1 << 32) - 3
+    def host_bytes(start, nblocks):
+        return torch.from_numpy(aes_host.ctr_keystream_numpy(
+            SEED[8:], int.from_bytes(SEED[:8], "little"), start, nblocks).copy())
+
+    # K1 as bytes: one CUDA block's worth and less (1, 2, 171 blocks), the
+    # counter low-word wrap and a start above 2^33, against the plain version
+    # and the host cipher; its word view; then any-alignment slices
+    for start, count in ((7, 1), ((1 << 32) - 1, 2), ((1 << 32) - 3, 171),
+                         ((1 << 32) - 3, 1000), ((1 << 33) + 11, 4097)):
+        got = aes.keystream_blocks(k, start, count)
+        check(got.dtype == torch.uint8 and got.shape == (count, 16), "K1 writes uint8 [n, 16]")
+        worse("keystream_words", max_abs_err(
+            got.reshape(-1), aes.keystream_bytes_plain(k, 16 * start, 16 * count)))
+        worse("keystream_words", max_abs_err(got.reshape(-1).cpu(), host_bytes(start, count)))
+        worse("keystream_words", max_abs_err(
+            aes.keystream_words(k, start, count), aes.keystream_words_plain(k, start, count)))
     worse("keystream_words", max_abs_err(
-        aes.keystream_words(k, start, 1000), aes.keystream_words_plain(k, start, 1000)))
+        sampling.keystream_bytes(key, 16 * 12345, 16 * 96).cpu(), host_bytes(12345, 96)))
     worse("keystream_words", max_abs_err(
-        sampling.keystream_bytes(key, 16 * 12345, 16 * 96).cpu(),
-        torch.from_numpy(aes_host.ctr_keystream_numpy(
-            SEED[8:], int.from_bytes(SEED[:8], "little"), 12345, 96).copy())))
+        sampling.keystream_bytes(key, 16 * 12345 + 13, 301).cpu(),
+        host_bytes(12345, 20)[13 : 13 + 301]))
     # K5: the same windows, ragged counts and a start above 2^32, against
     # its plain version and against K1's bytes
     for start5, count in ((12345, 96), ((1 << 32) - 3, 1000), (5, 33), (7, 1),
@@ -207,9 +225,26 @@ def phase_kernels(results: dict) -> None:
             aes.keystream_blocks(gkey, w["start"], w["nblocks"]).cpu(), want))
         worse("keystream_blocks_v1", max_abs_err(
             aes.keystream_blocks(gkey, w["start"], w["nblocks"], version=1).cpu(), want))
-    # K2: odd pair count across the wrap
-    worse("keystream_fold_p", max_abs_err(
-        aes.keystream_fold_p(k, (1 << 32) - 5, 2001), aes.keystream_fold_p_plain(k, (1 << 32) - 5, 2001)))
+    # K2: 1, 2 and an odd count of pairs across the wrap and above 2^32, into
+    # its own tensor and, with out=, into a slice between sentinels
+    for start, npairs in ((3, 1), ((1 << 32) - 1, 2), ((1 << 32) - 5, 2001), ((1 << 32) + 9, 2001)):
+        want = aes.keystream_fold_p_plain(k, start, npairs)
+        worse("keystream_fold_p", max_abs_err(aes.keystream_fold_p(k, start, npairs), want))
+        guarded = torch.full((npairs + 4,), -7, dtype=torch.int64, device=DEVICE)
+        got = aes.keystream_fold_p(k, start, npairs, out=guarded[2 : 2 + npairs])
+        check(got.data_ptr() == guarded[2:].data_ptr(), "K2 returns the out= tensor")
+        worse("keystream_fold_p", max_abs_err(guarded[2 : 2 + npairs], want))
+        check(bool((guarded[:2] == -7).all() and (guarded[2 + npairs:] == -7).all()),
+              f"K2 wrote outside out= (npairs={npairs})")
+    refused = 0
+    for bad in (torch.empty(9, dtype=torch.int64, device=DEVICE)[1:],  # 8 bytes off a 16-byte line
+                torch.empty(8, dtype=torch.int32, device=DEVICE),
+                torch.empty(16, dtype=torch.int64, device=DEVICE)[::2]):
+        try:
+            aes.keystream_fold_p(k, 0, 8, out=bad)
+        except ValueError:
+            refused += 1
+    check(refused == 3, "K2 took a misaligned, wrongly typed or strided out=")
     # K3: k = 5 lanes, offsets with lead 0, 8 and a block-aligned one
     gen = torch.Generator().manual_seed(3)
     n = 6
@@ -281,17 +316,24 @@ def phase_kernels(results: dict) -> None:
     coeffs = torch.randint(0, 1 << 32, (5, terms), generator=gen).to(DEVICE)
     sk = torch.randint(0, 256, (n, 88), generator=gen, dtype=torch.uint8).to(DEVICE)
     folds = tssp.TILE * d
+    fold_out = torch.empty(folds, dtype=torch.int64, device=DEVICE)  # a tile of v
     cases = {  # name -> [(shape, reps, kernel, plain, bound), ...]; the last case is reported
-        "keystream_words": [(
-            f"setup's error draws: {e_blocks} blocks", 10,
-            lambda: aes.keystream_words(ent_key.aes, e_base // 16, e_blocks),
-            lambda: aes.keystream_words_plain(ent_key.aes, e_base // 16, e_blocks),
-            bound(32 * e_blocks, TTABLE_OPS * e_blocks))],
+        "keystream_words": [
+            (f"setup's error draws: {e_blocks} blocks", 20,
+             lambda: aes.keystream_blocks(ent_key.aes, e_base // 16, e_blocks),
+             lambda: aes.keystream_bytes_plain(
+                 ent_key.aes, e_base // 16 * 16, 16 * e_blocks).reshape(e_blocks, 16),
+             bound(16 * e_blocks, CF_OPS * e_blocks)),
+            (f"one scan tile's a-slab: {TILE} ciphertexts, {tile_blocks} blocks", 20,
+             lambda: aes.keystream_blocks(crs_key.aes, P.ctr_s // 16, tile_blocks),
+             lambda: aes.keystream_bytes_plain(
+                 crs_key.aes, P.ctr_s // 16 * 16, 16 * tile_blocks).reshape(tile_blocks, 16),
+             bound(16 * tile_blocks, CF_OPS * tile_blocks))],
         "keystream_fold_p": [(
-            f"random_ssp's first tile: {tssp.TILE} rows x d={d}", 10,
-            lambda: aes.keystream_fold_p(ent_key.aes, (wb + pad) // 16, folds),
+            f"random_ssp's first tile: {tssp.TILE} rows x d={d}, out= a tile of v", 10,
+            lambda: aes.keystream_fold_p(ent_key.aes, (wb + pad) // 16, folds, out=fold_out),
             lambda: aes.keystream_fold_p_plain(ent_key.aes, (wb + pad) // 16, folds),
-            bound(8 * folds, TTABLE_OPS * folds / 2))],
+            bound(8 * folds, (CF_OPS + 2 * FOLD_OPS) * folds / 2))],
         "eval_mac_planes": [(
             f"one lane of the prover's sweep: k=1 x {terms} terms, n={n}", 5,
             lambda: eval_fused.eval_mac_planes(crs_key, P.ctr_s, coeffs[:1], n, P.ctr_ct),
@@ -338,34 +380,82 @@ def phase_kernels(results: dict) -> None:
 
 
 def phase_cores(label: str) -> None:
-    """The three candidate cipher cores of the fused kernels, each alone on
-    2^24 blocks, writing the 16 bytes of every block: the four-table core
-    (K1's kernel), the bitsliced register core (K5's kernel) and the
-    conflict-free table core that K3 and K4 use."""
+    """The two cipher cores of the port, each on 2^24 blocks, writing the 16
+    bytes of every block: the conflict-free table core (K1's kernel; K2, K3
+    and K4 run the same core) and the bitsliced register core (K5's kernel)."""
     import torch
 
-    from c_lwe_snarks_tpu_torch.ops import _build, aes, eval_fused, sampling
+    from c_lwe_snarks_tpu_torch.ops import _build, sampling
 
-    key = sampling.PRGKey(SEED, DEVICE)
-    k, nb = key.aes, 1 << 24
-    out32 = torch.empty(4 * nb, dtype=torch.int32, device=DEVICE)
-    out8 = out32.view(torch.uint8).reshape(nb, 16)
+    k, nb = sampling.PRGKey(SEED, DEVICE).aes, 1 << 24
+    out8 = torch.empty(nb, 16, dtype=torch.uint8, device=DEVICE)
     cores = {
-        "four-table core (aes_core.cuh, K1's kernel)": lambda: _build.launch(
-            "cls_keystream_words", k.tables32, k.rk32, k.nonce_lo, k.nonce_hi, 0, nb, out32),
+        "conflict-free table core (aes_core_cf.cuh, K1's kernel)": lambda: _build.launch(
+            "cls_keystream_blocks", k.tables32, k.rk_param, k.nonce_lo, k.nonce_hi, 0, nb, out8),
         "bitsliced register core (K5's kernel)": lambda: _build.launch(
             "cls_keystream_blocks_v1", k.rk_planes32, k.nonce_lo, k.nonce_hi, 0, nb, out8),
-        "conflict-free table core (aes_core_cf.cuh)": lambda: _build.launch(
-            "cls_cipher_core_cf", k.tables32, k.rk_param, k.nonce_lo, k.nonce_hi, 0, nb, out32),
     }
-    want = _build.bits32(aes.keystream_words_plain(k, 5, 4096))
-    check(max_abs_err(eval_fused.cipher_core_words(key, 5, 4096), want) == 0,
-          "the conflict-free core disagrees with the plain cipher")
     for name, fn in cores.items():
         fn()
         ms = cuda_ms(fn, 10)
         print(f"phase cores: {name}: {ms:.4f} ms for 2^24 blocks, "
               f"{nb * 16 / ms / 1e6:.1f} GB/s [{label}]")
+
+
+def device_times(fn) -> tuple[dict, float]:
+    """({kernel or copy name: (device microseconds, count)}, host seconds) of
+    one call of fn under torch.profiler, synchronized."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    items = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if ev.device_type == DeviceType.CUDA and us > 0:  # kernels and copies, not the ops above them
+            items[ev.key] = (us, ev.count)
+    return items, wall
+
+
+def phase_profile(label: str) -> None:
+    """What the device does during random_ssp at release parameters, by
+    kernel, and K1's device-side duration at three sizes (a CUDA-event time
+    of back-to-back short launches also holds the host's time to issue
+    them).  A reading, not a check: a profiler that traces no device
+    activity is reported as such."""
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+    from c_lwe_snarks_tpu_torch.ops import aes, sampling
+    from c_lwe_snarks_tpu_torch.utils.params import release
+
+    P = release()
+    ent_key = sampling.PRGKey(ENT_SEED, DEVICE)
+    tssp.random_ssp(ent_key, 0, P)  # warm
+    items, wall = device_times(lambda: tssp.random_ssp(ent_key, 0, P))
+    if not items:
+        print("phase profile: torch.profiler traced no device activity: not measured")
+        return
+    busy = sum(us for us, _ in items.values())
+    print(f"phase profile: random_ssp under the profiler {wall:.6f} s, device busy "
+          f"{busy / 1e3:.3f} ms ({busy / 1e4 / wall:.1f} %) [{label}]")
+    for name, (us, count) in sorted(items.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"phase profile:   {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
+    reps = 20
+    for nblocks in (1, 382292, 2163840):
+        items, wall = device_times(
+            lambda: [aes.keystream_blocks(ent_key.aes, 0, nblocks) for _ in range(reps)])
+        us = sum(us for name, (us, c) in items.items() if "keystream_blocks_kernel" in name)
+        count = sum(c for name, (us, c) in items.items() if "keystream_blocks_kernel" in name)
+        print(f"phase profile: K1 at {nblocks} blocks: {count} launches traced, device-side "
+              f"{us / max(count, 1):.3f} us a launch, host {wall / reps * 1e6:.1f} us a call "
+              f"under the profiler [{label}]")
 
 
 def digests(run, P) -> dict:
@@ -551,7 +641,8 @@ def phase_stagewise(run, label: str) -> dict:
         ks = aes.keystream_blocks(
             crs_key.aes, P.ctr_s // 16, TILE * P.ctr_ct // 16, version=1)
         slab5 = ks.reshape(TILE, P.n, 92)[..., :88]
-    slab1 = sampling.expand_a(crs_key, P.ctr_s, TILE, P.n)
+    with obs.timeit("a-slab of one tile from expand_a (K1)", out=times):
+        slab1 = sampling.expand_a(crs_key, P.ctr_s, TILE, P.n)
     slab_err = max_abs_err(slab5, slab1)
     print(f"phase stagewise: a-slab of {TILE} ciphertexts, bitsliced (K5) vs T-table (K1) "
           f"keystream max_abs_err={slab_err} (tolerance 0)")
@@ -592,6 +683,7 @@ def main() -> int:
     results: dict = {}
     phase_kernels(results)
     phase_cores(label)
+    phase_profile(label)
     phase_golden()
     run, release_launches = phase_release(label)
     stagewise_launches = phase_stagewise(run, label)

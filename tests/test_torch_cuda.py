@@ -44,17 +44,54 @@ def _eq(got: torch.Tensor, want: torch.Tensor) -> None:
 
 
 @pytest.mark.gpu
-def test_k1_keystream_words(cuda):
+@pytest.mark.parametrize("start,nblocks", [
+    (0, 1), (7, 2), (WRAP, 171), (WRAP, 5000), ((1 << 33) + 11, 4097), (12345, 1 << 16),
+    (3, 132 * 1024 + 7)])
+def test_k1_keystream_words(cuda, start, nblocks):
+    """K1 writes the stream's bytes: one block, less than one CUDA block,
+    the low-word wrap, a start above 2^33, more than one grid-stride pass;
+    the words are the same memory."""
     key = aes.make_key(SEED, cuda)
-    for start, nblocks in ((0, 1), (WRAP, 5000), (12345, 1 << 16)):
-        _eq(aes.keystream_words(key, start, nblocks), aes.keystream_words_plain(key, start, nblocks))
+    before = aes.LAUNCHES["keystream_words"]
+    got = aes.keystream_blocks(key, start, nblocks)
+    assert aes.LAUNCHES["keystream_words"] == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (nblocks, 16)
+    _eq(got.reshape(-1), aes.keystream_bytes_plain(key, 16 * start, 16 * nblocks))
+    _eq(aes.keystream_words(key, start, nblocks), aes.keystream_words_plain(key, start, nblocks))
 
 
 @pytest.mark.gpu
-def test_k2_keystream_fold_p(cuda):
+@pytest.mark.parametrize("start,npairs", [
+    (0, 1), (5, 2), (WRAP, 4001), ((1 << 32) + 9, 2001), (99, 1 << 17), (3, 2 * (132 * 1024) + 13)])
+def test_k2_keystream_fold_p(cuda, start, npairs):
+    """K2 writes int64 words, into its own tensor and into the middle of the
+    caller's: the odd tail ends on the last pair."""
     key = aes.make_key(SEED, cuda)
-    for start, npairs in ((0, 1), (WRAP, 4001), (99, 1 << 17)):
-        _eq(aes.keystream_fold_p(key, start, npairs), aes.keystream_fold_p_plain(key, start, npairs))
+    want = aes.keystream_fold_p_plain(key, start, npairs)
+    got = aes.keystream_fold_p(key, start, npairs)
+    assert got.dtype == torch.int64
+    _eq(got, want)
+    guarded = torch.full((npairs + 4,), -7, dtype=torch.int64, device=cuda)
+    before = aes.LAUNCHES["keystream_fold_p"]
+    out = aes.keystream_fold_p(key, start, npairs, out=guarded[2 : 2 + npairs])
+    assert aes.LAUNCHES["keystream_fold_p"] == before + 1
+    assert out.data_ptr() == guarded[2:].data_ptr()
+    _eq(guarded[2 : 2 + npairs], want)
+    assert bool((guarded[:2] == -7).all()) and bool((guarded[2 + npairs :] == -7).all())
+
+
+@pytest.mark.gpu
+def test_k2_refuses_an_out_it_cannot_write(cuda):
+    """No quiet copy and no fallback: a misaligned, wrongly typed, short,
+    strided or CPU out= raises."""
+    key = aes.make_key(SEED, cuda)
+    for bad in (torch.empty(9, dtype=torch.int64, device=cuda)[1:],
+                torch.empty(8, dtype=torch.int32, device=cuda),
+                torch.empty(6, dtype=torch.int64, device=cuda),
+                torch.empty(16, dtype=torch.int64, device=cuda)[::2],
+                torch.empty(8, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="out:"):
+            aes.keystream_fold_p(key, 0, 8, out=bad)
 
 
 @pytest.mark.gpu
@@ -121,16 +158,6 @@ def test_k3_k4_sums_at_the_signed_bound(cuda):
     big = torch.zeros((6380, 88), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="signed 32-bit"):
         eval_fused.encrypt_b_fused(key, 0, big, 1, 6380, 92 * 6380)
-
-
-@pytest.mark.gpu
-def test_cipher_core_alone(cuda):
-    """The fused kernels' cipher core, run alone, gives K1's words."""
-    key = sampling.PRGKey(SEED, cuda)
-    for start, nblocks in ((0, 1), (WRAP, 5000), ((1 << 33) + 11, 4097)):
-        got = eval_fused.cipher_core_words(key, start, nblocks)
-        want = aes.keystream_words(key.aes, start, nblocks)
-        _eq(got.long() & 0xFFFFFFFF, want)
 
 
 @pytest.mark.gpu

@@ -88,8 +88,8 @@ def jax_samples(keys):
 @pytest.mark.parametrize("draw_bytes,ndigits", DRAWS)
 @pytest.mark.parametrize("skip", SKIPS)
 def test_sample_digit_rows_vs_oracle(keys, draw_bytes, ndigits, skip):
-    """Word path (skip 0, 8) and byte path (odd skip); 70- and 81-byte
-    draws follow the floor-byte rule."""
+    """Block-aligned, half-block and odd skips; 70- and 81-byte draws
+    follow the floor-byte rule."""
     tkey, _ = keys
     got = tsam.sample_digit_rows(tkey, 16 * 1001 + skip, 13, draw_bytes=draw_bytes, ndigits=ndigits)
     ks = host_aes.ctr_keystream(KEY32, NONCE, 1001, 80)[skip : skip + 13 * draw_bytes]
