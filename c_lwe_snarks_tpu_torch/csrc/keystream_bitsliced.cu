@@ -2,36 +2,53 @@
 // table-free register cipher.
 //
 // Replaces c_lwe_snarks_tpu/ops/aes_pallas.py:_kernel (wrapper
-// keystream_blocks(version != 2)): counter bit planes by a 32x32 bit
-// transpose, 14 rounds of the 115-gate Boyar-Peralta S-box with the affine
-// constant 0x63 folded into round keys 1..14, ShiftRows, MixColumns on
-// planes, and a transpose back to bytes.  It shares nothing with the
-// T-table core of aes_core_cf.cuh but the host key schedule.
+// keystream_blocks(version != 2)): counter bit planes, 14 rounds of the
+// 115-gate Boyar-Peralta S-box with the affine constant 0x63 folded into
+// round keys 1..14, ShiftRows, MixColumns on planes, and a transpose back
+// to bytes.  It shares nothing with the T-table core of aes_core_cf.cuh but
+// the host key schedule.
 //
-// Layout chosen for this card, not the TPU's [16, W] sublane planes: one
-// thread owns one group of 32 consecutive counters and keeps the whole
-// state, 128 bit planes of one uint32 each, in registers.  Plane 8 * i + k
-// holds bit k (LSB first) of state byte i (FIPS input order, i = r + 4c);
-// bit b of a plane belongs to block b of the group.  SubBytes is the
-// generated gate list (sbox_bp_gates.cuh) on the 8 planes of each byte,
-// ShiftRows moves planes between registers, MixColumns is XORs of planes
-// (xtime on planes is a renaming plus three XORs), AddRoundKey XORs 0 / ~0
-// masks read from shared memory (15 x 128 words, every thread the same
-// address, so the loads broadcast).  The round loop is not unrolled: two
-// round bodies keep the code small and every plane index static.  The
-// 64-bit counter is start + 32 * group + b in a uint64_t, so the hi-word
-// carry needs no mask logic; the last, ragged group masks its stores.
+// Layout chosen for this card, not the TPU's [16, W] sublane planes: a
+// group of 32 consecutive counters is held by a quad of lanes, and lane c
+// of the quad holds column c of the state (bytes 4c..4c+3, LE word c of
+// the block) as 32 bit planes of one uint32 each: plane 8r + k is bit k
+// (LSB first) of row r of the column, bit b of a plane belongs to block b
+// of the group.  Every plane index is static, so the state stays in
+// registers with the round loop rolled.
+//   - The planes start from two words a lane (initial_planes): lanes 0 and 1
+//     hold the nonce, lanes 2 and 3 the low and high counter words, built
+//     from the group's base by funnel shifts, no transpose.
+//   - SubBytes: sbox_bp_gates.cuh, the gate list as 80 three-input lookup
+//     tables (one LOP3 each), on each of the lane's 4 bytes.
+//   - ShiftRows: 24 shuffles inside the quad (row r of lane c comes from
+//     lane (c + r) & 3).
+//   - MixColumns mixes inside a column, so it is the lane's own planes: two
+//     three-input XORs an output plane, the round key's 0 / ~0 mask among
+//     the inputs.  The masks sit in shared memory as [round][q][c][4]: lane c
+//     reads its 32 with 8 16-byte loads, the 4 lanes of a quad on 16 banks,
+//     the 8 quads of a warp on the same words (a broadcast).
+//   - After the rounds each lane transposes its planes into word c of its 32
+//     blocks and writes them to its warp's 4 KiB staging buffer, block R at
+//     row R ^ (R >> 5 & 7), so the 32 lanes of a store hit 32 banks; then each
+//     lane reads one 16-byte row and a warp store writes 512 contiguous bytes.
+//     Only the ragged tail of the stream is masked.
+// A warp's tile is 8 groups, 256 blocks.  The grid-stride loop runs over
+// tiles, so its condition is the same for the 32 lanes and every lane
+// reaches every shuffle; a quad past the last group computes and stores
+// nothing.  The 64-bit counter wraps modulo 2^64, as the wrapper allows.
 //
-// Bound on the H100: about 1,170 32-bit logic operations per 16-byte block
-// before LOP3 fusing (S-box 115 * 16 * 14 / 32 = 805, MixColumns 214,
-// AddRoundKey 60, six transposes 90) against 132 SMs * 64 INT32 lanes; the
-// 16 bytes written per block would allow 200 G blocks/s at 3.35 TB/s, so
-// the kernel is bound by operations, not bytes.  Known costs of this
-// simple form, left for later work: ~128 live planes plus S-box and
-// MixColumns temporaries sit near the 255-register limit (occupancy 2
-// warps per scheduler at best), a short stream gives few threads (one per
-// 512 bytes), and each thread stores its 32 blocks 512 bytes apart from
-// its neighbour's, so one store of a warp touches 32 sectors.
+// Bound on the H100: the two-input gates this layout needs, two to a LOP3,
+// against 132 SMs * 64 INT32 lanes (chip_smoke.py:BITSLICED_OPS, 550.25
+// operations a block); the 16 bytes written per block would allow 200 G
+// blocks/s at 3.35 TB/s, so the kernel is bound by operations, not bytes.
+// Its SASS (tools/k5_sass.py) holds 778 logic operations a block: 560 the
+// S-box's tables, 156 MixColumns with its round key, 62 the first and last
+// round keys, the counter planes, one transpose a lane and the staging.
+// Beside them, 42 shuffles and 20 shared-memory accesses a block (other
+// pipes, but dispatch slots).  Known costs of this layout: the S-box at 1.44
+// gates a LOP3, where the two gates a LOP3 of the bound would need another
+// circuit; a scan tile's 8,453 tiles are 4.002 passes of the 2,112 resident
+// warps, so a few warps finish alone.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -39,12 +56,19 @@
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int64_t kMaxGrid = 132 * 64;
+constexpr int kLanes = 4;                          // lanes a group of 32 counters
+constexpr int kGroupsPerWarp = 32 / kLanes;        // a warp tile: 8 groups, 256 blocks
+constexpr int kTileBlocks = 32 * kGroupsPerWarp;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;                      // 128 registers a thread at most
+constexpr int64_t kMaxGrid = 132 * kMinBlocks;
 constexpr int kRkWords = 15 * 128;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // One stage of the SWAR transpose: swap the high-column bits of row t with
-// the low-column bits of row t + J inside every 2J-row band.
+// the low-column bits of row t + J inside every 2J-row band.  For J = 16
+// and 8 the swap moves whole bytes, one byte permute a row.
 template <int J, uint32_t M>
 __device__ __forceinline__ void swap_stage(uint32_t* a) {
 #pragma unroll
@@ -53,9 +77,16 @@ __device__ __forceinline__ void swap_stage(uint32_t* a) {
     for (int t = 0; t < J; ++t) {
       const uint32_t lo = a[band + t];
       const uint32_t hi = a[band + J + t];
-      const uint32_t x = ((lo >> J) ^ hi) & M;
-      a[band + t] = lo ^ (x << J);
-      a[band + J + t] = hi ^ x;
+      if constexpr (J == 16) {
+        a[band + t] = __byte_perm(lo, hi, 0x5410);
+        a[band + J + t] = __byte_perm(lo, hi, 0x7632);
+      } else if constexpr (J == 8) {
+        a[band + t] = __byte_perm(lo, hi, 0x6240);
+        a[band + J + t] = __byte_perm(lo, hi, 0x7351);
+      } else {
+        a[band + t] = (lo & ~(M << J)) | ((hi << J) & (M << J));
+        a[band + J + t] = (hi & ~M) | ((lo >> J) & M);
+      }
     }
   }
 }
@@ -69,122 +100,157 @@ __device__ __forceinline__ void transpose32(uint32_t* a) {
   swap_stage<1, 0x55555555u>(a);
 }
 
-__device__ __forceinline__ void add_round_key(uint32_t* s, const uint32_t* rk) {
+// The planes of this lane's column before round 0: lanes 0 and 1 the nonce
+// (the same in every block), lanes 2 and 3 the low or high words of the
+// counters base + b.  With off = base & 31, blocks b < 32 - off share bits
+// 5..63 with base0 = base - off and the others with base0 + 32, so plane j
+// is a funnel of two constant planes; bits 0..4 of the low word are those
+// of off + b, the pattern of bit j over 0..31 rotated by off.
+__device__ __forceinline__ void initial_planes(uint32_t* s, int c, uint32_t nonce_lo,
+                                               uint32_t nonce_hi, uint64_t base) {
+  constexpr uint32_t kPattern[5] = {0xAAAAAAAAu, 0xCCCCCCCCu, 0xF0F0F0F0u, 0xFF00FF00u, 0xFFFF0000u};
+  const uint32_t off = static_cast<uint32_t>(base) & 31u;
+  const uint64_t base0 = base - off;
+  const uint64_t base1 = base0 + 32;
+  const uint32_t w0 = c == 0 ? nonce_lo : c == 1 ? nonce_hi
+                    : static_cast<uint32_t>(c == 2 ? base0 : base0 >> 32);
+  const uint32_t w1 = c == 0 ? nonce_lo : c == 1 ? nonce_hi
+                    : static_cast<uint32_t>(c == 2 ? base1 : base1 >> 32);
+  const uint32_t low = c == 2 ? ~0u : 0u;
 #pragma unroll
-  for (int i = 0; i < 128; ++i) s[i] ^= rk[i];
+  for (int j = 0; j < 32; ++j) {
+    const uint32_t m0 = static_cast<uint32_t>(static_cast<int32_t>(w0 << (31 - j)) >> 31);
+    const uint32_t m1 = static_cast<uint32_t>(static_cast<int32_t>(w1 << (31 - j)) >> 31);
+    s[j] = __funnelshift_r(m0, m1, off);
+    if (j < 5) s[j] |= low & __funnelshift_r(kPattern[j], kPattern[j], off);
+  }
+}
+
+// The 32 masks of lane c in round rnd: planes 4q..4q+3 of its column.
+__device__ __forceinline__ void round_key(const uint4* rk, int rnd, int c, uint32_t* m) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint4 v = rk[32 * rnd + 4 * q + c];
+    m[4 * q] = v.x;
+    m[4 * q + 1] = v.y;
+    m[4 * q + 2] = v.z;
+    m[4 * q + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void add_round_key(uint32_t* s, const uint32_t* m) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] ^= m[j];
 }
 
 __device__ __forceinline__ void sub_bytes(uint32_t* s) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) cls::sbox_bp(s + 8 * i);
+  for (int r = 0; r < 4; ++r) cls::sbox_bp(s + 8 * r);
 }
 
-// new[r][c] = old[r][(c + r) % 4] with byte index i = r + 4c.
-__device__ __forceinline__ void shift_rows(uint32_t* s) {
+// new[r][c] = old[r][(c + r) % 4]: row r of this lane from lane (c + r) & 3.
+__device__ __forceinline__ void shift_rows(uint32_t* s, int c) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    uint32_t t = s[8 * 1 + k];  // row 1: rotate left by one column
-    s[8 * 1 + k] = s[8 * 5 + k];
-    s[8 * 5 + k] = s[8 * 9 + k];
-    s[8 * 9 + k] = s[8 * 13 + k];
-    s[8 * 13 + k] = t;
-    t = s[8 * 2 + k];  // row 2: swap columns 0 <-> 2 and 1 <-> 3
-    s[8 * 2 + k] = s[8 * 10 + k];
-    s[8 * 10 + k] = t;
-    t = s[8 * 6 + k];
-    s[8 * 6 + k] = s[8 * 14 + k];
-    s[8 * 14 + k] = t;
-    t = s[8 * 15 + k];  // row 3: rotate right by one column
-    s[8 * 15 + k] = s[8 * 11 + k];
-    s[8 * 11 + k] = s[8 * 7 + k];
-    s[8 * 7 + k] = s[8 * 3 + k];
-    s[8 * 3 + k] = t;
+  for (int r = 1; r < 4; ++r) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[8 * r + k] = __shfl_sync(kFull, s[8 * r + k], (c + r) & 3, kLanes);
   }
 }
 
-// Per column: new_r = a_r ^ t ^ xtime(a_r ^ a_{r+1}), t = a_0 ^ a_1 ^ a_2 ^ a_3.
-__device__ __forceinline__ void mix_columns(uint32_t* s) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    uint32_t a[4][8];
-    uint32_t t[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r][k] = s[8 * (r + 4 * c) + k];
-      t[k] = a[0][k] ^ a[1][k] ^ a[2][k] ^ a[3][k];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      uint32_t u[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) u[k] = a[r][k] ^ a[(r + 1) & 3][k];
-      // xtime(u) = (u << 1) ^ (u7 ? 0x1B : 0): bits 0, 1, 3, 4 take u7
-      uint32_t* o = s + 8 * (r + 4 * c);
-      o[0] = a[r][0] ^ t[0] ^ u[7];
-      o[1] = a[r][1] ^ t[1] ^ u[0] ^ u[7];
-      o[2] = a[r][2] ^ t[2] ^ u[1];
-      o[3] = a[r][3] ^ t[3] ^ u[2] ^ u[7];
-      o[4] = a[r][4] ^ t[4] ^ u[3] ^ u[7];
-      o[5] = a[r][5] ^ t[5] ^ u[4];
-      o[6] = a[r][6] ^ t[6] ^ u[5];
-      o[7] = a[r][7] ^ t[7] ^ u[6];
-    }
-  }
+__device__ __forceinline__ uint32_t xor3(uint32_t a, uint32_t b, uint32_t c) {
+  return cls::lop3<0x96>(a, b, c);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The lane's column, then its round key: new_r = a_r ^ t ^ xtime(a_r ^ a_{r+1})
+// with t = a_0 ^ a_1 ^ a_2 ^ a_3, written as a_{r+1} ^ u_{r+2} ^ xtime(u_r)
+// where u_r = a_r ^ a_{r+1}: two three-input XORs an output plane.
+__device__ __forceinline__ void mix_columns_add_round_key(uint32_t* s, const uint32_t* m) {
+  uint32_t u[4][8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) u[r][k] = s[8 * r + k] ^ s[8 * ((r + 1) & 3) + k];
+  }
+  uint32_t o[32];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint32_t* a = s + 8 * ((r + 1) & 3);
+    const uint32_t* v = u[(r + 2) & 3];
+    const uint32_t* x = u[r];
+    const uint32_t* rk = m + 8 * r;
+    // xtime(x) = (x << 1) ^ (x7 ? 0x1B : 0): bits 0, 1, 3, 4 take x7
+    o[8 * r + 0] = xor3(xor3(a[0], v[0], x[7]), rk[0], 0u);
+    o[8 * r + 1] = xor3(xor3(a[1], v[1], x[0]), x[7], rk[1]);
+    o[8 * r + 2] = xor3(xor3(a[2], v[2], x[1]), rk[2], 0u);
+    o[8 * r + 3] = xor3(xor3(a[3], v[3], x[2]), x[7], rk[3]);
+    o[8 * r + 4] = xor3(xor3(a[4], v[4], x[3]), x[7], rk[4]);
+    o[8 * r + 5] = xor3(xor3(a[5], v[5], x[4]), rk[5], 0u);
+    o[8 * r + 6] = xor3(xor3(a[6], v[6], x[5]), rk[6], 0u);
+    o[8 * r + 7] = xor3(xor3(a[7], v[7], x[6]), rk[7], 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = o[j];
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 keystream_blocks_v1_kernel(const uint32_t* __restrict__ rk_planes, uint32_t nonce_lo,
                            uint32_t nonce_hi, uint64_t start, int64_t nblocks,
                            uint4* __restrict__ out) {
-  __shared__ uint32_t rk[kRkWords];
-  for (int i = threadIdx.x; i < kRkWords; i += blockDim.x) rk[i] = rk_planes[i];
+  __shared__ __align__(16) uint32_t rk_smem[kRkWords];
+  __shared__ uint4 stage[kWarps][kTileBlocks];
+  // plane p = 32c + 4q + t of round rnd (p = 8 * byte + bit) at [rnd][q][c][t]
+  for (int i = threadIdx.x; i < kRkWords; i += kThreads) {
+    const int p = i & 127;
+    rk_smem[(i & ~127) | ((p & 31) >> 2) << 4 | (p >> 5) << 2 | (p & 3)] = rk_planes[i];
+  }
   __syncthreads();
+  const uint4* rk = reinterpret_cast<const uint4*>(rk_smem);
 
-  const int64_t ngroups = (nblocks + 31) / 32;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; g < ngroups;
-       g += stride) {
-    uint32_t s[128];
-    // bytes 0..7: the nonce, the same in every block, so constant planes
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      s[j] = 0u - ((nonce_lo >> j) & 1u);
-      s[32 + j] = 0u - ((nonce_hi >> j) & 1u);
-    }
-    // bytes 8..15: the 64-bit LE counter of block b, transposed into planes
-    const uint64_t base = start + 32ull * static_cast<uint64_t>(g);
-#pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      const uint64_t ctr = base + static_cast<uint64_t>(b);
-      s[64 + b] = static_cast<uint32_t>(ctr);
-      s[96 + b] = static_cast<uint32_t>(ctr >> 32);
-    }
-    transpose32(s + 64);
-    transpose32(s + 96);
+  const int lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const int quad = lane >> 2;
+  uint4* buf = stage[threadIdx.x >> 5];
+  uint32_t* buf32 = reinterpret_cast<uint32_t*>(buf);
+  const int64_t ntiles = (nblocks + kTileBlocks - 1) / kTileBlocks;
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5); tile < ntiles;
+       tile += nwarps) {
+    const int64_t first = tile * kTileBlocks;
+    uint32_t s[32];
+    initial_planes(s, c, nonce_lo, nonce_hi, start + static_cast<uint64_t>(first + 32 * quad));
 
-    add_round_key(s, rk);
+    uint32_t m[32];
+    round_key(rk, 0, c, m);
+    add_round_key(s, m);
 #pragma unroll 1
-    for (int r = 1; r < 14; ++r) {
+    for (int rnd = 1; rnd < 14; ++rnd) {
       sub_bytes(s);
-      shift_rows(s);
-      mix_columns(s);
-      add_round_key(s, rk + 128 * r);
+      shift_rows(s, c);
+      round_key(rk, rnd, c, m);
+      mix_columns_add_round_key(s, m);
     }
     sub_bytes(s);
-    shift_rows(s);
-    add_round_key(s, rk + 128 * 14);
+    shift_rows(s, c);
+    round_key(rk, 14, c, m);
+    add_round_key(s, m);
 
-    // planes 32w .. 32w + 31 are the bits of LE word w; transposed, row b
-    // is word w of block b
+    transpose32(s);
+    // s[b] = LE word c of block 32 * quad + b of the tile; row R of the
+    // staging buffer lives at row R ^ (R >> 5 & 7), R = 32 * quad + 8h + l
 #pragma unroll
-    for (int w = 0; w < 4; ++w) transpose32(s + 32 * w);
-    const int64_t first = 32 * g;
-    const int64_t left = nblocks - first;
+    for (int l = 0; l < 8; ++l) {
+      uint32_t* row = buf32 + 4 * (32 * quad + (l ^ quad)) + c;
 #pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      if (b < left) out[first + b] = make_uint4(s[b], s[32 + b], s[64 + b], s[96 + b]);
+      for (int h = 0; h < 4; ++h) row[32 * h] = s[8 * h + l];
     }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint4 v = buf[32 * i + (lane ^ i)];
+      const int64_t blk = first + 32 * i + lane;
+      if (blk < nblocks) out[blk] = v;
+    }
+    __syncwarp();
   }
 }
 
@@ -192,8 +258,8 @@ keystream_blocks_v1_kernel(const uint32_t* __restrict__ rk_planes, uint32_t nonc
 
 extern "C" int cls_keystream_blocks_v1(const void* rk_planes, uint32_t nonce_lo, uint32_t nonce_hi,
                                        uint64_t start, int64_t nblocks, void* out, void* stream) {
-  const int64_t ngroups = (nblocks + 31) / 32;
-  int64_t grid = (ngroups + kThreads - 1) / kThreads;
+  const int64_t ntiles = (nblocks + kTileBlocks - 1) / kTileBlocks;
+  int64_t grid = (ntiles + kWarps - 1) / kWarps;
   if (grid > kMaxGrid) grid = kMaxGrid;
   if (grid < 1) grid = 1;
   keystream_blocks_v1_kernel<<<static_cast<int>(grid), kThreads, 0,

@@ -11,10 +11,11 @@ K1 and K2 (``csrc/keystream.cu``) use the conflict-free T-table cipher of
 the standard round keys from ``utils/aes_host.key_expansion`` as a kernel
 parameter); their plain versions run the textbook four-table rounds as
 torch gathers.  K5 (``csrc/keystream_bitsliced.cu``) is a table-free
-bitsliced cipher: 128 bit planes per group of 32 blocks, the 115-gate
-S-box of ``ops/sbox_bp.py`` and round keys as 0 / ~0 plane masks with the
-S-box constant 0x63 folded into rounds 1..14; its plain version runs the
-same circuit on tensors.
+bitsliced cipher: 128 bit planes per group of 32 blocks, split over a
+quad of lanes (lane c holds state column c; ShiftRows is a shuffle), the
+115-gate S-box of ``ops/sbox_bp.py`` as three-input lookup tables and
+round keys as 0 / ~0 plane masks with the S-box constant 0x63 folded into
+rounds 1..14; its plain version runs the same gates on tensors.
 
 Each kernel writes what its callers read: K1 and K5 the stream's bytes,
 uint8 ``[nblocks, 16]`` (``keystream_words`` is the same memory viewed as

@@ -13,7 +13,11 @@ non-zero, and only a full pass prints the final JSON line):
    the largest shape the release main path gives it, where both are timed
    with CUDA events; K1 (as bytes, at 1, 2 and 171 blocks too) and K5 also
    against each other, against the host AES cipher and against the
-   committed keystream windows of the JAX package's oracle; K2 with
+   committed keystream windows of the JAX package's oracle; K5 at counts
+   around its quad's group (32 blocks), a warp's tile (256) and a CUDA
+   block's tiles (1,024), over more than one grid-stride pass, and at the
+   main path's two shapes against K1, its time also against K1's
+   operation count; K2 with
    ``out=`` into a slice guarded by sentinels; K3 against the scan path at
    d = 2^16; K3 and K4 at the shapes that stress their tensor-core tiling
    (ragged row and ciphertext counts, a single ciphertext, odd byte
@@ -21,7 +25,8 @@ non-zero, and only a full pass prints the final JSON line):
    cores (K1's table core, K5's bitsliced one) timed on 2^24 blocks; K3
    also at k = 1 beside k = 5; K1 also at a scan tile's size beside
    setup's error draws; one ``torch.profiler`` pass over random_ssp at
-   release parameters and over K1's launches (device-side durations);
+   release parameters and over K1's and K5's launches (device-side
+   durations);
 3. run the protocol at the tiny and toy parameters on the card and hold
    the SSP/CRS/VRS/proof sha256 digests against the committed golden
    file (made from the JAX package); stream the toy SSP to a file and back;
@@ -81,10 +86,19 @@ STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1")
 PEAK_BYTES = 3.35e12
 PEAK_INT32 = 67e12 / 4
 PEAK_INT8 = 1979e12
-# 32-bit operations per 16-byte AES block.  Bitsliced core
-# (keystream_bitsliced.cu): 1,169.5 two-input gates a block (S-box 115 x 16
-# x 14 / 32, MixColumns 132 x 4 x 13 / 32, AddRoundKey 128 x 15 / 32, six
-# transposes of 480), of which a three-input LOP3 can take two at a time.
+# 32-bit operations per 16-byte AES block.  Bitsliced core of K5
+# (keystream_bitsliced.cu), the two-input gates its layout needs, two to a
+# LOP3, for a group of 32 blocks: the S-box's 115 gates on 16 bytes in 14
+# rounds; MixColumns in 13 rounds on the 4 columns, 108 gates a column (the
+# 32 XORs of u_r = a_r ^ a_{r+1}, then a row's 8 output planes
+# a_{r+1} ^ u_{r+2} ^ xtime(u_r) in 19: two a plane and the three x7 taps);
+# AddRoundKey 128 planes in 15 rounds; four transposes of 480 (one a lane
+# after the rounds; the counter planes are funnel shifts of two words, no
+# transpose): (115 x 16 x 14 + 108 x 4 x 13 + 128 x 15 + 4 x 480) / 32 / 2
+# = 550.25.  The shipped SASS issues more, 778.125 logic operations a block
+# (tools/k5_sass.py), and 42 shuffles and 20 shared-memory accesses beside
+# them, none counted.  K5's time is also printed against K1's count, the
+# fastest way this card is known to make the same bytes.
 # Conflict-free core of K1..K4 (aes_core_cf.cuh): 4 to swap and whiten the
 # counter words (the nonce words are the same for every block), then 14
 # rounds of 4 words x 8: four byte permutes that are the lookup addresses, and
@@ -96,7 +110,7 @@ PEAK_INT8 = 1979e12
 # compare with p and a conditional - p.
 CF_OPS = 4 + 14 * 4 * 8
 FOLD_OPS = 2 + 1 + 2 + 2
-BITSLICED_OPS = (115 * 16 * 14 + 132 * 4 * 13 + 128 * 15 + 6 * 480) / 32 / 2
+BITSLICED_OPS = (115 * 16 * 14 + 108 * 4 * 13 + 128 * 15 + 4 * 480) / 32 / 2
 
 
 def check(cond, msg: str) -> None:
@@ -207,13 +221,23 @@ def phase_kernels(results: dict) -> None:
     worse("keystream_words", max_abs_err(
         sampling.keystream_bytes(key, 16 * 12345 + 13, 301).cpu(),
         host_bytes(12345, 20)[13 : 13 + 301]))
-    # K5: the same windows, ragged counts and a start above 2^32, against
-    # its plain version and against K1's bytes
-    for start5, count in ((12345, 96), ((1 << 32) - 3, 1000), (5, 33), (7, 1),
-                          ((1 << 33) + 11, 4097)):
+    # K5: the same windows, ragged counts around a quad's group (32 blocks),
+    # a warp's tile (256) and a CUDA block's tiles (1,024), the low-word wrap
+    # inside a group, a start above 2^32 and more than one grid-stride pass,
+    # against its plain version, K1's bytes and the host cipher; the main
+    # path's two shapes against K1
+    for start5, count in ((12345, 96), ((1 << 32) - 3, 1000), (5, 31), (5, 32), (5, 33), (7, 1),
+                          ((1 << 32) - 67, 255), ((1 << 32) - 3, 256), ((1 << 32) - 303, 257),
+                          (7, 1023), (7, 1024), ((1 << 32) + 9, 1025), ((1 << 33) + 11, 4097),
+                          (3, 528 * 1024 + 33)):
         got = aes.keystream_blocks(k, start5, count, version=1)
         worse("keystream_blocks_v1", max_abs_err(got, aes.keystream_blocks_v1_plain(k, start5, count)))
         worse("keystream_blocks_v1", max_abs_err(got, aes.keystream_blocks(k, start5, count)))
+        if count <= 4097:
+            worse("keystream_blocks_v1", max_abs_err(got.reshape(-1).cpu(), host_bytes(start5, count)))
+    for start5, count in ((6_000_123, 382_292), (1 << 20, 2_163_840)):
+        worse("keystream_blocks_v1", max_abs_err(
+            aes.keystream_blocks(k, start5, count, version=1), aes.keystream_blocks(k, start5, count)))
     # K1 and K5 against the keystream windows of the JAX package's oracle
     golden = json.loads(GOLDEN_KEYSTREAM.read_text())
     gkey = aes.make_key(bytes.fromhex(golden["seed"]), DEVICE)
@@ -374,7 +398,11 @@ def phase_kernels(results: dict) -> None:
                              "plain_ms": plain_ms, **bnd, "library_ms": None}
             print(f"phase kernels: {name} [{shape}] max_abs_err={err} (tolerance 0); "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-                  f"by {bnd['bound_by']}")
+                  f"by {bnd['bound_by']} ({100 * bnd['bound_ms'] / ms:.1f} %)")
+            if name == "keystream_blocks_v1":  # at K1's count
+                at = bnd["bound_ms"] * CF_OPS / BITSLICED_OPS
+                print(f"phase kernels: {name} [{shape}] at K1's {CF_OPS} operations a block: "
+                      f"{at:.4f} ms ({100 * at / ms:.1f} %)")
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with a reference (max_abs_err={e})")
 
@@ -389,17 +417,20 @@ def phase_cores(label: str) -> None:
 
     k, nb = sampling.PRGKey(SEED, DEVICE).aes, 1 << 24
     out8 = torch.empty(nb, 16, dtype=torch.uint8, device=DEVICE)
-    cores = {
-        "conflict-free table core (aes_core_cf.cuh, K1's kernel)": lambda: _build.launch(
+    cores = {  # name -> (launch, operations a block of its bound)
+        "conflict-free table core (aes_core_cf.cuh, K1's kernel)": (lambda: _build.launch(
             "cls_keystream_blocks", k.tables32, k.rk_param, k.nonce_lo, k.nonce_hi, 0, nb, out8),
-        "bitsliced register core (K5's kernel)": lambda: _build.launch(
+            CF_OPS),
+        "bitsliced register core (K5's kernel)": (lambda: _build.launch(
             "cls_keystream_blocks_v1", k.rk_planes32, k.nonce_lo, k.nonce_hi, 0, nb, out8),
+            BITSLICED_OPS),
     }
-    for name, fn in cores.items():
+    for name, (fn, ops) in cores.items():
         fn()
         ms = cuda_ms(fn, 10)
-        print(f"phase cores: {name}: {ms:.4f} ms for 2^24 blocks, "
-              f"{nb * 16 / ms / 1e6:.1f} GB/s [{label}]")
+        at = bound(16 * nb, ops * nb)["bound_ms"]
+        print(f"phase cores: {name}: {ms:.4f} ms for 2^24 blocks, {nb * 16 / ms / 1e6:.1f} GB/s, "
+              f"bound {at:.4f} ms at {ops} operations a block ({100 * at / ms:.1f} %) [{label}]")
 
 
 def device_times(fn) -> tuple[dict, float]:
@@ -427,10 +458,10 @@ def device_times(fn) -> tuple[dict, float]:
 
 def phase_profile(label: str) -> None:
     """What the device does during random_ssp at release parameters, by
-    kernel, and K1's device-side duration at three sizes (a CUDA-event time
-    of back-to-back short launches also holds the host's time to issue
-    them).  A reading, not a check: a profiler that traces no device
-    activity is reported as such."""
+    kernel, and the device-side durations of K1 at three sizes and of K5 at
+    the main path's two (a CUDA-event time of back-to-back short launches
+    also holds the host's time to launch them).  A reading, not a check: a
+    profiler that traces no device activity is reported as such."""
     from c_lwe_snarks_tpu_torch.models import ssp as tssp
     from c_lwe_snarks_tpu_torch.ops import aes, sampling
     from c_lwe_snarks_tpu_torch.utils.params import release
@@ -448,14 +479,16 @@ def phase_profile(label: str) -> None:
     for name, (us, count) in sorted(items.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"phase profile:   {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
     reps = 20
-    for nblocks in (1, 382292, 2163840):
-        items, wall = device_times(
-            lambda: [aes.keystream_blocks(ent_key.aes, 0, nblocks) for _ in range(reps)])
-        us = sum(us for name, (us, c) in items.items() if "keystream_blocks_kernel" in name)
-        count = sum(c for name, (us, c) in items.items() if "keystream_blocks_kernel" in name)
-        print(f"phase profile: K1 at {nblocks} blocks: {count} launches traced, device-side "
-              f"{us / max(count, 1):.3f} us a launch, host {wall / reps * 1e6:.1f} us a call "
-              f"under the profiler [{label}]")
+    for tag, kernel, version, sizes in (("K1", "keystream_blocks_kernel", 2, (1, 382292, 2163840)),
+                                        ("K5", "keystream_blocks_v1_kernel", 1, (382292, 2163840))):
+        for nblocks in sizes:
+            items, wall = device_times(lambda: [
+                aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version) for _ in range(reps)])
+            us = sum(us for name, (us, c) in items.items() if kernel in name)
+            count = sum(c for name, (us, c) in items.items() if kernel in name)
+            print(f"phase profile: {tag} at {nblocks} blocks: {count} launches traced, device-side "
+                  f"{us / max(count, 1):.3f} us a launch, host {wall / reps * 1e6:.1f} us a call "
+                  f"under the profiler [{label}]")
 
 
 def digests(run, P) -> dict:

@@ -192,15 +192,23 @@ def test_k3_beyond_the_int32_bound(cuda):
 @pytest.mark.gpu
 def test_k5_keystream_blocks_v1(cuda):
     """The bitsliced kernel against its plain version and against K1: ragged
-    counts, the low-word wrap, a start above 2^32."""
+    counts around a quad's group (32 blocks), a warp's tile (256) and a CUDA
+    block's tiles (4 warps, 1,024 blocks), the low-word wrap inside a group,
+    a start above 2^32, more than one grid-stride pass (528 CUDA blocks x
+    1,024 blocks), and the main path's two shapes against K1 alone."""
     key = aes.make_key(SEED, cuda)
-    for start, nblocks in ((0, 1), (5, 33), (WRAP, 5000), ((1 << 33) + 11, 4097), (12345, 1 << 16)):
+    for start, nblocks in ((0, 1), (5, 31), (5, 32), (5, 33), (WRAP - 64, 255), (WRAP, 256),
+                           (WRAP - 300, 257), (7, 1023), (7, 1024), ((1 << 32) + 9, 1025),
+                           (WRAP, 5000), ((1 << 33) + 11, 4097), (12345, 1 << 16),
+                           (3, 528 * 1024 + 33)):
         before = aes.LAUNCHES["keystream_blocks_v1"]
         got = aes.keystream_blocks(key, start, nblocks, version=1)
         assert aes.LAUNCHES["keystream_blocks_v1"] == before + 1
         assert got.dtype == torch.uint8 and got.shape == (nblocks, 16)
         _eq(got, aes.keystream_blocks_v1_plain(key, start, nblocks))
         _eq(got, aes.keystream_blocks(key, start, nblocks))
+    for start, nblocks in ((6_000_123, 382_292), (1 << 20, 2_163_840)):
+        _eq(aes.keystream_blocks(key, start, nblocks, version=1), aes.keystream_blocks(key, start, nblocks))
     _eq(aes.keystream_bytes(key, 16 * 77, 301),
         aes.keystream_blocks(key, 77, 19, version=1).reshape(-1)[:301])
 

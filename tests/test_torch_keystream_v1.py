@@ -13,6 +13,7 @@ tests/test_torch_cuda.py.
 import importlib.util
 import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -142,12 +143,22 @@ def test_sbox_bits_bp_vs_jax():
 
 
 def test_generated_header_is_current():
-    """csrc/sbox_bp_gates.cuh == what the generator prints from the gate list."""
+    """csrc/sbox_bp_gates.cuh == what the generator prints from the gate list:
+    one lop3 a table of the gates' cover, and the tables as written compute
+    the gate list's outputs on all 256 bytes."""
     spec = importlib.util.spec_from_file_location(
         "gen_sbox_bp_cuh", ROOT / "tools" / "gen_sbox_bp_cuh.py")
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
     text = gen.render()
     assert gen.TARGET.read_text() == text
-    gates = [ln for ln in text.splitlines() if ln.startswith("  const uint32_t r") and "x[" not in ln]
-    assert len(gates) == tsbox.GATE_COUNT
+    cover = gen.lop3_cover()
+    tables = [ln for ln in text.splitlines() if ln.startswith("  const uint32_t r") and "x[" not in ln]
+    assert len(tables) == len(cover) < tsbox.GATE_COUNT
+    parsed = []
+    for ln in tables:
+        dst, lut, args = re.fullmatch(r"  const uint32_t r(\d+) = lop3<0x(\w\w)>\((.*)\);", ln).groups()
+        parsed.append((int(dst), tuple(int(a.strip()[1:]) for a in args.split(",")), int(lut, 16)))
+    every = (1 << 256) - 1
+    planes = [sum((x >> k & 1) << x for x in range(256)) for k in range(8)]
+    assert gen.run_cover(parsed, planes, every) == tsbox.sbox_bits_bp(planes)
