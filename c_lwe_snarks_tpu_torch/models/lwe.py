@@ -126,13 +126,17 @@ def encrypt_section(
     uint8 [B, 88].  ``impl``: "fused" takes <sk, a_i> from the fused
     keystream->encrypt kernel (K4); "scan" expands the a-slab of one
     ``tile`` of ciphertexts at a time (K1) and contracts it in torch;
-    "auto" is "fused": K4 takes any offset and any count, so none of the
-    JAX package's eligibility rules carry over.
+    "auto" is "fused" up to n = 6,379, where K4's signed 32-bit sums
+    hold (``eval_fused.fits_enc_bound``), and "scan" past it.  K4 takes
+    any offset and any count up to n = 6,379, so no other eligibility
+    rule of the JAX package carries over.
     """
     total = msgs.shape[0]
     if impl not in ("auto", "fused", "scan"):
         raise ValueError(f"unknown impl {impl!r}")
-    if impl != "scan":
+    if impl == "auto":
+        impl = "fused" if eval_fused.fits_enc_bound(params.n) else "scan"
+    if impl == "fused":
         dot = eval_fused.encrypt_b_fused(key, section_offset, sk, total, params.n, params.ctr_ct)
         return _b_rows(dot, msgs, errs, params)
     if tile is None:

@@ -16,6 +16,12 @@ zk-SNARK, reference src/snark.c):
   the same.
 * verifier: 5 decrypts and the mod-p relations.
 
+Given a mesh (``parallel.mesh``), setup and the prover split their work
+over the ranks: v_i(s) over the rows of v, the encryptions and the five
+evaluations over the CRS terms, the NTT's large products over the 4-step
+transform; every rank ends with the whole CRS and the whole proof, and
+the verifier is unchanged.
+
 All randomness beyond the CRS seed comes from a second seeded AES-CTR
 stream ("entropy") in the reference's draw order, so runs are
 reproducible and byte-identical to the JAX package given equal seeds.
@@ -32,6 +38,8 @@ import torch.nn.functional as F
 
 from ..ops import digits as dg
 from ..ops import modp, ntt, sampling
+from ..parallel import mesh as pmesh
+from ..parallel.multihost import chunk_bounds
 from ..utils.params import Params
 from . import lwe as tlwe
 from . import ssp as tssp
@@ -111,6 +119,28 @@ def _err_digits(ent: sampling.PRGKey, offset: int, count: int, params: Params):
     return tlwe.pad_digits(rows)
 
 
+def setup_errs(
+    ent_key: sampling.PRGKey, ent_offset: int, lo: int, hi: int, params: Params
+) -> torch.Tensor:
+    """Error digit rows [hi - lo, 88] of CRS terms [lo, hi): one 70-byte
+    entropy draw a term, in term order, after alpha, beta, s and sk."""
+    e_base = ent_offset + 24 + params.logq_bytes * params.n
+    return _err_digits(ent_key, e_base + lo * enc_entropy_bytes(params), hi - lo, params)
+
+
+def setup_messages(
+    alpha: torch.Tensor, beta: torch.Tensor, powers: torch.Tensor, t_s: torch.Tensor,
+    v_s: torch.Tensor,
+) -> torch.Tensor:
+    """The 2d+m plaintexts in CRS term order: int64 words."""
+    return torch.cat([
+        powers,                                 # s^i          (CTR_S)
+        modp.mulmod_p(alpha, powers),           # alpha s^i    (CTR_AS)
+        modp.mulmod_p(beta, t_s).reshape(1),    # beta t(s)    (CTR_BT)
+        modp.mulmod_p(beta, v_s[1:]),           # beta v_i(s)  (CTR_BV)
+    ])
+
+
 # --------------------------------------------------------------------------
 # setup
 # --------------------------------------------------------------------------
@@ -124,32 +154,40 @@ def setup(
     params: Params,
     *,
     tile: int | None = None,
+    mesh=None,
 ) -> tuple[CRS, VRS]:
     """CRS/VRS generation (src/snark.c:57-115).
 
     With ``tile=None`` the 2d+m encryptions are one fused launch (K4);
     given a tile they take the two-stage scan path of
-    ``lwe.encrypt_section`` in tiles of that many ciphertexts."""
+    ``lwe.encrypt_section`` in tiles of that many ciphertexts.  With
+    ``mesh`` (ssp.v: the rank's rows, ``parallel.mesh.random_ssp_sharded``)
+    each rank evaluates its rows of v at s and draws and encrypts its
+    chunk of the terms; every rank returns the whole CRS."""
     d, m, n = params.d, params.m, params.n
     scalars = sampling.keystream_bytes(ent_key, ent_offset, 24).reshape(3, 8)
     alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
     sk = tlwe.key_gen(ent_key, ent_offset + 24, params)
 
-    e_base = ent_offset + 24 + params.logq_bytes * n
-    errs = _err_digits(ent_key, e_base, 2 * d + 1 + (m - 1), params)
-
     powers = modp.powers_mod_p(s, d)
     t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
-    v_s = modp.matvec_mod_p(ssp.v, powers)
-    msgs = torch.cat([
-        powers,                                 # s^i          (CTR_S)
-        modp.mulmod_p(alpha, powers),           # alpha s^i    (CTR_AS)
-        modp.mulmod_p(beta, t_s).reshape(1),    # beta t(s)    (CTR_BT)
-        modp.mulmod_p(beta, v_s[1:]),           # beta v_i(s)  (CTR_BV)
-    ])
-    rows = tlwe.encrypt_section(
-        crs_key, params.ctr_s, sk, msgs, errs, params, tile=tile,
-        impl="auto" if tile is None else "scan")
+    impl = "auto" if tile is None else "scan"
+    n_enc = 2 * d + 1 + (m - 1)
+    if mesh is None:
+        msgs = setup_messages(alpha, beta, powers, t_s, modp.matvec_mod_p(ssp.v, powers))
+        rows = tlwe.encrypt_section(
+            crs_key, params.ctr_s, sk, msgs, setup_errs(ent_key, ent_offset, 0, n_enc, params),
+            params, tile=tile, impl=impl)
+    else:
+        _, rank, world = pmesh.axis(mesh)
+        if (ssp.row0, ssp.row0 + ssp.v.shape[0]) != chunk_bounds(m, rank, world):
+            raise ValueError("setup with a mesh takes the rank's rows of v (random_ssp_sharded)")
+        msgs = setup_messages(alpha, beta, powers, t_s,
+                              pmesh.v_at_s_sharded(ssp.v, powers, mesh, m))
+        lo, hi = chunk_bounds(n_enc, rank, world)
+        rows = pmesh.encrypt_section_sharded(
+            crs_key, params.ctr_s, sk, msgs, setup_errs(ent_key, ent_offset, lo, hi, params),
+            params, mesh, tile=tile, impl=impl)
     crs = CRS(seed=crs_key.seed, b_s=rows[:d], b_as=rows[d : 2 * d],
               b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
     return crs, VRS(alpha=alpha, beta=beta, s=s, sk=sk)
@@ -158,6 +196,63 @@ def setup(
 # --------------------------------------------------------------------------
 # prover
 # --------------------------------------------------------------------------
+
+
+def prover_polys(
+    ent_key: sampling.PRGKey,
+    ent_offset: int,
+    ssp: tssp.SSP,
+    witness: torch.Tensor,
+    params: Params,
+    *,
+    mesh=None,
+) -> tuple:
+    """(delta, w, v, h) of the prover: w = delta * t + sum_{witness bit
+    i-1} v_i, v = v_0 + w and h = (v^2 - 1) / t on the CRT-NTT engine.
+
+    With ``mesh`` (ssp.v: the rank's rows) the gated row-sum runs over the
+    rank's rows (one int64 ``all_reduce``), v_0 comes from rank 0, and the
+    NTT's large products run on the 4-step transform."""
+    d, m = params.d, params.m
+    delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
+    if mesh is None:
+        rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
+    else:
+        gate = F.pad(witness[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
+        rowsum, v0 = pmesh.gated_rowsum_sharded(ssp, gate, mesh), pmesh.row_zero(ssp, mesh)
+    w = modp.addmod_p(modp.mulmod_p(delta, ssp.t), rowsum)
+    v = modp.addmod_p(v0, w)
+    num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
+    num[0] = modp.submod_p(num[0], 1)
+    h = ntt.poly_div_exact_mod_p(num, ssp.t, d, mesh=mesh)
+    return delta, w, v, h
+
+
+def onepass_terms(
+    crs: CRS,
+    w: torch.Tensor,
+    h: torch.Tensor,
+    v: torch.Tensor,
+    delta: torch.Tensor,
+    witness: torch.Tensor,
+    params: Params,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(b-rows uint8 [2d+m, 88], coefficients int64 [5, 2d+m]) of the one
+    sweep over every CRS term.
+
+    The CRS sections are back to back in the stream, so (w, h over s),
+    (v, h over as) and b_w (delta at the bt term + witness bits over bv)
+    are five coefficient lanes over the same contiguous term range, each
+    lane zero outside its section."""
+    d, m = params.d, params.m
+    coeffs = torch.zeros(5, 2 * d + m, dtype=torch.int64, device=w.device)
+    coeffs[0, :d] = w
+    coeffs[1, :d] = h
+    coeffs[2, d : 2 * d] = v
+    coeffs[3, d : 2 * d] = h
+    coeffs[4, 2 * d] = delta
+    coeffs[4, 2 * d + 1 :] = witness[: m - 1].to(torch.int64)
+    return torch.cat([crs.b_s, crs.b_as, crs.b_t[None], crs.b_v]), coeffs
 
 
 def _prover_evals_onepass(
@@ -169,25 +264,16 @@ def _prover_evals_onepass(
     delta: torch.Tensor,
     witness: torch.Tensor,
     params: Params,
-) -> tuple:
-    """All five prover evaluations in ONE fused kernel sweep.
-
-    The CRS sections are back to back in the stream, so (w, h over s),
-    (v, h over as) and b_w (delta at the bt term + witness bits over bv)
-    are five coefficient lanes over the same contiguous term range, each
-    lane zero outside its section.  Returns (v_w, h, hat_v, hat_h, b_w).
-    """
-    d, m = params.d, params.m
-    coeffs = torch.zeros(5, 2 * d + m, dtype=torch.int64, device=w.device)
-    coeffs[0, :d] = w
-    coeffs[1, :d] = h
-    coeffs[2, d : 2 * d] = v
-    coeffs[3, d : 2 * d] = h
-    coeffs[4, 2 * d] = delta
-    coeffs[4, 2 * d + 1 :] = witness[: m - 1].to(torch.int64)
-    b_all = torch.cat([crs.b_s, crs.b_as, crs.b_t[None], crs.b_v])
-    out = tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params)
-    return out[0], out[1], out[2], out[3], out[4]
+    mesh=None,
+) -> torch.Tensor:
+    """All five prover evaluations in ONE fused kernel sweep
+    (``onepass_terms``); with ``mesh``, one K3 launch a rank over its
+    chunk of the terms and one ``all_reduce``.  Returns uint8 [5, n+1, 88]:
+    v_w, h, hat_v, hat_h, b_w."""
+    b_all, coeffs = onepass_terms(crs, w, h, v, delta, witness, params)
+    if mesh is None:
+        return tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params)
+    return pmesh.eval_poly_multi_sharded(crs_key, params.ctr_s, b_all, coeffs, params, mesh)
 
 
 def _pad_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
@@ -210,6 +296,7 @@ def _prover_evals_stagewise(
     witness: torch.Tensor,
     params: Params,
     tile: int,
+    mesh=None,
 ) -> tuple:
     """The five prover evaluations section by section (src/snark.c:140-183).
 
@@ -218,21 +305,24 @@ def _prover_evals_stagewise(
     with 0/1 coefficients over the bv section, padded to whole tiles (or
     to an even count when the section is shorter than a tile).  Then two
     fused two-polynomial evaluations: (w, h) over the s section and
-    (v, h) over the as section.  Returns (v_w, h, hat_v, hat_h, b_w).
+    (v, h) over the as section.  With ``mesh`` each evaluation splits its
+    terms over the ranks.  Returns (v_w, h, hat_v, hat_h, b_w).
     """
     m = params.m
+
+    def evaluate(off, b_rows, coeffs):
+        if mesh is None:
+            return tlwe.eval_poly_multi(crs_key, off, b_rows, coeffs, params, tile=tile)
+        return pmesh.eval_poly_multi_sharded(crs_key, off, b_rows, coeffs, params, mesh, tile=tile)
+
     ct_bt = tlwe.ct_import(crs_key, params.ctr_bt, crs.b_t[None], params)[0]
     bw_mult = tile if (m - 1) >= tile else 2
     bw_coeffs = _pad_multiple(witness[: m - 1].to(torch.int64), bw_mult)
     bw_rows = _pad_multiple(crs.b_v, bw_mult)
     b_w = tlwe.ct_add(
-        tlwe.ct_mul_ui(ct_bt, delta),
-        tlwe.eval_poly_multi(
-            crs_key, params.ctr_bv, bw_rows, bw_coeffs[None], params, tile=tile)[0])
-    ev_s = tlwe.eval_poly_multi(
-        crs_key, params.ctr_s, crs.b_s, torch.stack([w, h]), params, tile=tile)
-    ev_as = tlwe.eval_poly_multi(
-        crs_key, params.ctr_as, crs.b_as, torch.stack([v, h]), params, tile=tile)
+        tlwe.ct_mul_ui(ct_bt, delta), evaluate(params.ctr_bv, bw_rows, bw_coeffs[None])[0])
+    ev_s = evaluate(params.ctr_s, crs.b_s, torch.stack([w, h]))
+    ev_as = evaluate(params.ctr_as, crs.b_as, torch.stack([v, h]))
     return ev_s[0], ev_s[1], ev_as[0], ev_as[1], b_w
 
 
@@ -246,32 +336,28 @@ def prover(
     params: Params,
     *,
     tile: int | None = None,
+    mesh=None,
 ) -> Proof:
     """src/snark.c:117-190; witness: uint8 bits [m] (bit i-1 gates v_i).
 
     With ``tile=None`` the five evaluations are one kernel sweep; given a
-    tile they run stage by stage (``_prover_evals_stagewise``)."""
-    d, m = params.d, params.m
-    delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
-
-    # w = delta * t + sum_{witness bit i-1} v_i;  v = v_0 + w
-    w = modp.addmod_p(
-        modp.mulmod_p(delta, ssp.t), modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]))
-    v = modp.addmod_p(ssp.v[0], w)
-    # h = (v^2 - 1) / t on the CRT-NTT engine
-    num = ntt.poly_mul_mod_p(v, v)
-    num[0] = modp.submod_p(num[0], 1)
-    h = ntt.poly_div_exact_mod_p(num, ssp.t, d)
-
+    tile they run stage by stage (``_prover_evals_stagewise``).  With
+    ``mesh`` (ssp.v: the rank's rows) the work splits over the ranks as
+    ``prover_polys`` and the evaluations say; every rank returns the
+    whole proof."""
+    delta, w, v, h = prover_polys(ent_key, ent_offset, ssp, witness, params, mesh=mesh)
     if tile is None:
-        v_w, h_ct, hat_v, hat_h, b_w = _prover_evals_onepass(
-            crs_key, crs, w, h, v, delta, witness, params)
+        evals = _prover_evals_onepass(crs_key, crs, w, h, v, delta, witness, params, mesh)
     else:
-        v_w, h_ct, hat_v, hat_h, b_w = _prover_evals_stagewise(
-            crs_key, crs, w, h, v, delta, witness, params, tile)
+        evals = _prover_evals_stagewise(crs_key, crs, w, h, v, delta, witness, params, tile, mesh)
+    return smudge_proof(ent_key, ent_offset, evals, params)
 
-    # smudging in the reference order: h, hat_h, hat_v, v_w, v_w (v_w
-    # twice, b_w never — src/snark.c:184-189)
+
+def smudge_proof(ent_key: sampling.PRGKey, ent_offset: int, evals, params: Params) -> Proof:
+    """The proof from the five evaluations (v_w, h, hat_v, hat_h, b_w):
+    smudging in the reference order h, hat_h, hat_v, v_w, v_w (v_w twice,
+    b_w never — src/snark.c:184-189), drawn after delta."""
+    v_w, h_ct, hat_v, hat_h, b_w = evals
     sm = sampling.sample_digit_rows(
         ent_key, ent_offset + 8, 5, draw_bytes=smudge_entropy_bytes(params),
         ndigits=smudge_entropy_bytes(params))
@@ -311,7 +397,12 @@ def test_error_ok(vrs: VRS, proof: Proof, params: Params) -> torch.Tensor:
 
 
 def verifier(vrs: VRS, ssp: tssp.SSP, proof: Proof, params: Params) -> torch.Tensor:
-    """Decrypt the proof and check the mod-p relations; bool scalar."""
+    """Decrypt the proof and check the mod-p relations; bool scalar.
+
+    Reads t and v_0 of the SSP (a rank's rows of v hold v_0 on rank 0
+    only: ``parallel.mesh.row_zero``)."""
+    if ssp.row0:
+        raise ValueError("the verifier needs v_0; this SSP holds rows from row0 on")
     dec = tlwe.decrypt(proof.stack(), vrs.sk, params)  # [5]
     h_s, hath_s, hatv_s, w_s, b_s = (dec[i] for i in range(5))
     t_s = modp.poly_eval_mod_p(ssp.t, vrs.s)

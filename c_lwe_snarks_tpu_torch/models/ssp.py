@@ -19,10 +19,14 @@ from ..utils.params import Params
 
 @dataclasses.dataclass
 class SSP:
-    """An SSP instance on one device: t int64 [d], v int64 [m, d]."""
+    """An SSP instance on one device: t int64 [d], v int64 [m, d].
+
+    Under a mesh v may hold one rank's rows only: rows [row0, row0 + len(v))
+    (``parallel.mesh.random_ssp_sharded``)."""
 
     t: torch.Tensor
     v: torch.Tensor
+    row0: int = 0
 
 
 def witness_pad_bytes(params: Params) -> tuple[int, int]:
@@ -53,36 +57,50 @@ TILE = 1024  # rows per K2 launch: 2^25 folds at d = 2^15, 256 MiB of int64 v
 
 
 def gen_v(
-    key: sampling.PRGKey, ctr0: int, mask: torch.Tensor, d: int
+    key: sampling.PRGKey, ctr0: int, mask: torch.Tensor, d: int, *, tile: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """v-polynomials from block counter ``ctr0`` and their masked sum.
 
     mask: 0/1 [rows] t-gate per row.  Returns (v int64 [rows, d], the
     mod-p sum of the gated rows int64 [d]).  A row is 8d stream bytes =
-    d/2 AES blocks; each tile of rows is one K2 launch, which writes the
-    tile into v where it lives.
+    d/2 AES blocks, so row i of a section starts at block ctr0 + i * d/2:
+    a rank of a mesh passes the counter of its first row.  Each ``tile``
+    of rows (default ``TILE``) is one K2 launch, which writes the tile
+    into v where it lives.
     """
     rows = mask.shape[0]
+    tile = TILE if tile is None else tile
     assert d % 2 == 0, d
     v = torch.empty(rows, d, dtype=torch.int64, device=key.device)
     t = torch.zeros(d, dtype=torch.int64, device=key.device)
-    for lo in range(0, rows, TILE):
-        hi = min(rows, lo + TILE)
+    for lo in range(0, rows, tile):
+        hi = min(rows, lo + tile)
         sampling.keystream_fold_p(
             key, ctr0 + lo * (d // 2), (hi - lo) * d, out=v[lo:hi].view(-1))
         t = (t + modp.gated_rowsum_mod_p(v[lo:hi], mask[lo:hi])) % modp.P
     return v, t
 
 
-def random_ssp(
+def witness_and_mask(
     key: sampling.PRGKey, byte_offset: int, params: Params
-) -> tuple[torch.Tensor, SSP]:
-    """(witness bits uint8 [m], SSP) from the entropy stream at byte_offset."""
-    m, d = params.m, params.d
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(witness bits uint8 [m], t-gate mask [m], block counter of v_0).
+
+    The mask gates v_0 always and v_i by witness bit i-1."""
+    m = params.m
     wb, pad = witness_pad_bytes(params)
     assert byte_offset % 16 == 0, "random_ssp section must be block-aligned"
     wits = witness_bits(sampling.keystream_bytes(key, byte_offset, wb), m)
     mask = torch.cat([torch.ones(1, dtype=torch.uint8, device=key.device), wits[: m - 1]])
-    v, t = gen_v(key, (byte_offset + wb + pad) // 16, mask, d)
+    return wits, mask, (byte_offset + wb + pad) // 16
+
+
+def random_ssp(
+    key: sampling.PRGKey, byte_offset: int, params: Params, *, tile: int | None = None
+) -> tuple[torch.Tensor, SSP]:
+    """(witness bits uint8 [m], SSP) from the entropy stream at byte_offset;
+    ``tile`` rows of v a K2 launch (``gen_v``)."""
+    wits, mask, ctr0 = witness_and_mask(key, byte_offset, params)
+    v, t = gen_v(key, ctr0, mask, params.d, tile=tile)
     t[0] = modp.submod_p(t[0], 1)
     return wits, SSP(t=t, v=v)

@@ -118,10 +118,15 @@ def encrypt_b_fused_plain(
     return torch.cat(out)
 
 
+def fits_enc_bound(n: int) -> bool:
+    """Whether K4's per-digit nibble sums, at most n * 88 * 255 * 15, fit
+    the tensor cores' signed 32-bit accumulators (n <= 6379)."""
+    return n * 88 * 255 * 15 < 1 << 31
+
+
 def check_enc_bound(n: int) -> None:
-    """Raise unless K4's per-digit nibble sums, at most n * 88 * 255 * 15,
-    fit the tensor cores' signed 32-bit accumulators (n <= 6379)."""
-    if n * 88 * 255 * 15 >= 1 << 31:
+    """Raise unless ``fits_enc_bound(n)``."""
+    if not fits_enc_bound(n):
         raise ValueError(f"n={n} overflows the kernel's signed 32-bit accumulators")
 
 

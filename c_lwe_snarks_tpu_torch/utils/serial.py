@@ -11,7 +11,9 @@ Stored rows are the 88 live digits zero-padded to 92 bytes.  The readers
 put their tensors on the card unless the caller names another device.
 The ``*_stream`` functions move release-scale files (the release SSP
 buffer is 8 * 2^15 * 21846 bytes = 5.33 GiB) in row chunks, so the extra
-host memory is one chunk.
+host memory is one chunk.  ``crs_local_section_rows`` and
+``crs_local_slice`` are the write and read halves of per-host CRS IO in a
+multi-process run: each host writes and reads only its own rows.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 
 from ..models import snark as tsnark
 from ..models import ssp as tssp
+from ..parallel import mesh as pmesh
+from ..parallel import multihost
 from .params import Params
 
 
@@ -105,8 +109,14 @@ def proof_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.Proof:
 # --------------------------------------------------------------------------
 
 
+def _check_whole(ssp: tssp.SSP, params: Params) -> None:
+    if ssp.row0 or ssp.v.shape[0] != params.m:
+        raise ValueError("the SSP holds a rank's rows of v: gather them first (mesh.gather_rows)")
+
+
 def ssp_to_buffer(ssp: tssp.SSP, params: Params) -> bytes:
     """t then v_0..v_{m-1}, each d uint64-LE coefficients (< p)."""
+    _check_whole(ssp, params)
     t = ssp.t.cpu().numpy().astype("<u8")
     v = ssp.v.cpu().numpy().astype("<u8")
     return t.tobytes() + v.tobytes()
@@ -137,6 +147,7 @@ def ssp_write_stream(
 ) -> None:
     """Write the flat SSP layout chunk-wise; byte-identical to
     ``save(path, ssp_to_buffer(...))``."""
+    _check_whole(ssp, params)
     with open(path, "wb") as f:
         f.write(ssp.t.cpu().numpy().astype("<u8").tobytes())
         for lo in range(0, ssp.v.shape[0], rows_per_chunk):
@@ -181,6 +192,37 @@ def crs_row_table(path: str, params: Params) -> tuple[bytes, np.ndarray]:
     rows = np.memmap(path, dtype=np.uint8, mode="r", offset=40,
                      shape=(params.crs_num_cts, params.ct_bytes))
     return seed, rows
+
+
+def crs_local_section_rows(
+    crs: tsnark.CRS, params: Params, mesh
+) -> dict[str, tuple[int, np.ndarray]]:
+    """This rank's rows of each CRS section in the stored 92-byte form.
+
+    The write half of per-host CRS IO: each section is split over the
+    ranks by the chunk rule (``multihost.chunk_bounds``), so every host
+    writes only its own rows, and the file stitched from them in rank
+    order equals ``crs_to_bytes``.  Returns {"s" | "as" | "v": (first row,
+    uint8 [rows, 92]), "t": (0, [1, 92])}; "t" is whole on every rank, so
+    callers pick one writer."""
+    _, rank, world = pmesh.axis(mesh)
+    out = {}
+    for name, rows in (("s", crs.b_s), ("as", crs.b_as), ("v", crs.b_v)):
+        lo, hi = multihost.chunk_bounds(rows.shape[0], rank, world)
+        out[name] = (lo, _rows92(rows[lo:hi], params))
+    out["t"] = (0, _rows92(crs.b_t[None], params))
+    return out
+
+
+def crs_local_slice(path: str, params: Params) -> tuple[bytes, int, np.ndarray]:
+    """(seed, first row, rows [hi - lo, 88]) of this host's CRS rows.
+
+    The read half of per-host CRS IO: rows [lo, hi) of the whole
+    2d+1+(m-1) row table by ``multihost.local_shard_bounds``, read through
+    ``crs_row_table``'s memmap, so a host touches only its own pages."""
+    seed, table = crs_row_table(path, params)
+    lo, hi = multihost.local_shard_bounds(params.crs_num_cts)
+    return seed, lo, np.asarray(table[lo:hi, :88])
 
 
 # --------------------------------------------------------------------------

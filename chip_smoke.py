@@ -41,7 +41,12 @@ non-zero, and only a full pass prints the final JSON line):
    (tile 256) and require the one-pass proof's bytes, verify from the
    reloaded VRS, hold the scan evaluation against the fused one over the
    whole s section, and regenerate one scan tile's a-slab with the
-   bitsliced keystream (K5) against the T-table one (K1).
+   bitsliced keystream (K5) against the T-table one (K1);
+6. the multi-device layer (``phase_sharded``): every rank's part at
+   W = 4 and W = 3, one after another on the card, combined as the
+   collectives would and held byte for byte against the release run, with
+   the counters reset again (K1, K2, K3 and K4 at every rank's stream
+   offset), then the CLI under torchrun in a world of 1 over NCCL.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -78,6 +83,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # kernels each path must launch at least once
 RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused")
 STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1")
+SHARDED_PATH = RELEASE_PATH
+SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.  The
 # sheet gives no integer ALU rate: 67 TFLOP/s of float32 is 2 flops on 128
@@ -433,15 +440,25 @@ def phase_cores(label: str) -> None:
               f"bound {at:.4f} ms at {ops} operations a block ({100 * at / ms:.1f} %) [{label}]")
 
 
+PROFILER_SETTLE_S = 0.01
+
+
 def device_times(fn) -> tuple[dict, float]:
     """({kernel or copy name: (device microseconds, count)}, host seconds) of
-    one call of fn under torch.profiler, synchronized."""
+    one call of fn under torch.profiler, synchronized.
+
+    fn starts PROFILER_SETTLE_S after the profiler: the trace holds every
+    host-side launch call from the start, but kernels launched in about
+    the first millisecond can be missing from it (tools/profile_gap.py:
+    on an H100, 2 of 16 bursts of 20 launches at once lost 20 and 1; with
+    1, 10 or 50 ms between, none of 48 lost any)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_SETTLE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -451,9 +468,31 @@ def device_times(fn) -> tuple[dict, float]:
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if ev.device_type == DeviceType.CUDA and us > 0:  # kernels and copies, not the ops above them
+        if ev.device_type == DeviceType.CUDA:  # kernels and copies, not the ops above them
             items[ev.key] = (us, ev.count)
     return items, wall
+
+
+def profiled_line(tag: str, kernel: str, counter: str, fn, reps: int, label: str) -> None:
+    """One profiled line: the device-side time a launch of ``kernel`` over
+    ``reps`` calls of fn, printed only when the trace holds every launch the
+    wrapper counted (``aes.LAUNCHES[counter]`` over the same calls); else
+    "traced X of Y launches: not measured", with the trace's device items."""
+    from c_lwe_snarks_tpu_torch.ops import aes
+
+    before = aes.LAUNCHES[counter]
+    items, wall = device_times(fn)
+    launched = aes.LAUNCHES[counter] - before
+    us = sum(us for name, (us, c) in items.items() if kernel in name)
+    count = sum(c for name, (us, c) in items.items() if kernel in name)
+    if count != launched or count == 0:
+        print(f"phase profile: {tag}: traced {count} of {launched} launches: not measured "
+              f"(host {wall / reps * 1e6:.1f} us a call) [{label}]")
+        for name, (us_i, c) in sorted(items.items(), key=lambda kv: -kv[1][1])[:6]:
+            print(f"phase profile:   trace item x{c} {us_i:.3f} us {name[:90]}")
+        return
+    print(f"phase profile: {tag}: {count} launches traced, device-side {us / count:.3f} us a "
+          f"launch, host {wall / reps * 1e6:.1f} us a call under the profiler [{label}]")
 
 
 def phase_profile(label: str) -> None:
@@ -469,9 +508,12 @@ def phase_profile(label: str) -> None:
     P = release()
     ent_key = sampling.PRGKey(ENT_SEED, DEVICE)
     tssp.random_ssp(ent_key, 0, P)  # warm
+    before = aes.LAUNCHES["keystream_fold_p"]
     items, wall = device_times(lambda: tssp.random_ssp(ent_key, 0, P))
-    if not items:
-        print("phase profile: torch.profiler traced no device activity: not measured")
+    launched = aes.LAUNCHES["keystream_fold_p"] - before
+    traced = sum(c for name, (us, c) in items.items() if "keystream_fold_p_kernel" in name)
+    if traced != launched:
+        print(f"phase profile: random_ssp: traced {traced} of {launched} K2 launches: not measured")
         return
     busy = sum(us for us, _ in items.values())
     print(f"phase profile: random_ssp under the profiler {wall:.6f} s, device busy "
@@ -479,16 +521,13 @@ def phase_profile(label: str) -> None:
     for name, (us, count) in sorted(items.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"phase profile:   {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
     reps = 20
-    for tag, kernel, version, sizes in (("K1", "keystream_blocks_kernel", 2, (1, 382292, 2163840)),
-                                        ("K5", "keystream_blocks_v1_kernel", 1, (382292, 2163840))):
+    for tag, kernel, counter, version, sizes in (
+            ("K1", "keystream_blocks_kernel", "keystream_words", 2, (1, 382292, 2163840)),
+            ("K5", "keystream_blocks_v1_kernel", "keystream_blocks_v1", 1, (382292, 2163840))):
         for nblocks in sizes:
-            items, wall = device_times(lambda: [
-                aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version) for _ in range(reps)])
-            us = sum(us for name, (us, c) in items.items() if kernel in name)
-            count = sum(c for name, (us, c) in items.items() if kernel in name)
-            print(f"phase profile: {tag} at {nblocks} blocks: {count} launches traced, device-side "
-                  f"{us / max(count, 1):.3f} us a launch, host {wall / reps * 1e6:.1f} us a call "
-                  f"under the profiler [{label}]")
+            profiled_line(f"{tag} at {nblocks} blocks", kernel, counter, lambda: [
+                aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version)
+                for _ in range(reps)], reps, label)
 
 
 def digests(run, P) -> dict:
@@ -690,6 +729,157 @@ def phase_stagewise(run, label: str) -> dict:
     return launches
 
 
+def cli_run(args: list, label: str, what: str) -> subprocess.CompletedProcess:
+    """Run ``python <args>`` from the checkout; print its wall, stage walls and
+    verdict; raise unless it exits 0 and prints ``verified: True``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    walls = [line.split("] ", 1)[1] for line in proc.stderr.splitlines() if "[timeit]" in line]
+    verified = "verified: True" in proc.stdout
+    print(f"phase sharded: {what} in a fresh process, {wall:.1f} s: verified={verified}; "
+          f"stage walls {'; '.join(walls)} [{label}]")
+    check(verified, f"{what}: the verifier did not accept")
+    return proc
+
+
+def phase_sharded(run, label: str) -> dict:
+    """The multi-device layer at release width on the one card.
+
+    1. For W = 4 and W = 3 (ragged: 21,845 rows of v split 7,282, 7,282,
+       7,281), every rank's part of ``parallel.mesh`` runs one after
+       another: random_ssp's rows of v (K2) and their partial t, v_i(s) of
+       those rows, setup's chunk of the terms (the rank's own error draws by
+       K1, its encryptions by K4) and the prover's one sweep over its chunk
+       of the 87,381 terms (one K3 launch a rank).  The parts are combined as
+       the collectives would (concatenation; a sum and % p; an int32 sum and
+       carry_fold, then the smudging) and held byte for byte against the
+       release run's SSP, CRS and proof.  Then each rank's K2, K3 and K4 call
+       is timed with CUDA events beside the one-device call.
+    2. The CLI under torchrun, ``--mesh 1`` over NCCL in a world of 1: it
+       must print ``verified: True``, and its crs.bin and proof.bin must
+       equal the release run's; the one-device CLI runs beside it, each in
+       a fresh process.
+
+    The 4-step NTT needs a world of W > 1 ranks with W dividing n1 = n2 =
+    256 at release; one card cannot hold such a world, so the CPU tests
+    cover it over gloo (tests/test_torch_parallel.py)."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+    from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, modp, sampling
+    from c_lwe_snarks_tpu_torch.parallel import mesh as pmesh
+    from c_lwe_snarks_tpu_torch.parallel.multihost import chunk_bounds
+    from c_lwe_snarks_tpu_torch.utils import serial
+    from c_lwe_snarks_tpu_torch.utils.params import release
+
+    t_phase = time.perf_counter()
+    P = release()
+    d, m, n = P.d, P.m, P.n
+    crs_key, ent_key = sampling.PRGKey(CRS_SEED, DEVICE), sampling.PRGKey(ENT_SEED, DEVICE)
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    off_prove = off_setup + tsnark.setup_entropy_bytes(P)
+    n_enc = 2 * d + m
+    vrs, ssp = run.vrs, run.ssp
+    crs_rows = torch.cat([run.crs.b_s, run.crs.b_as, run.crs.b_t[None], run.crs.b_v])
+    powers = modp.powers_mod_p(vrs.s, d)
+    t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
+    # the prover's polynomials on one device: the sweep's inputs
+    delta, w, v, h = tsnark.prover_polys(ent_key, off_prove, ssp, run.witness, P)
+    b_all, coeffs = tsnark.onepass_terms(run.crs, w, h, v, delta, run.witness, P)
+
+    counters = reset_counters()
+    for world in SHARDED_WORLDS:
+        t_sum = torch.zeros(d, dtype=torch.int64, device=DEVICE)
+        v_s, same_v = [], True
+        for r in range(world):
+            wits, v_r, t_r, lo = pmesh.random_ssp_part(r, world, ent_key, 0, P)
+            same_v &= torch.equal(v_r, ssp.v[lo : lo + v_r.shape[0]]) and torch.equal(
+                wits, run.witness)
+            t_sum += t_r
+            v_s.append(modp.matvec_mod_p(v_r, powers))
+            del v_r
+        t = t_sum % modp.P
+        t[0] = modp.submod_p(t[0], 1)
+        same_t = torch.equal(t, ssp.t)
+        msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, powers, t_s, torch.cat(v_s))
+        same_rows = True
+        for r in range(world):
+            lo, hi = chunk_bounds(n_enc, r, world)
+            errs = tsnark.setup_errs(ent_key, off_setup, lo, hi, P)
+            rows = pmesh.encrypt_section_part(r, world, crs_key, P.ctr_s, vrs.sk, msgs, errs, P)
+            same_rows &= torch.equal(rows, crs_rows[lo:hi])
+        acc = torch.zeros(5, n + 1, 88, dtype=torch.int32, device=DEVICE)
+        for r in range(world):
+            acc += pmesh.eval_poly_multi_part(r, world, crs_key, P.ctr_s, b_all, coeffs, P).int()
+        proof = tsnark.smudge_proof(ent_key, off_prove, dg.carry_fold(acc), P)
+        same_proof = serial.proof_to_bytes(proof, P) == serial.proof_to_bytes(run.proof, P)
+        print(f"phase sharded: W={world}, every rank's part on the card, combined: v rows equal="
+              f"{same_v}, t equal={same_t}, CRS rows equal={same_rows}, proof bytes equal="
+              f"{same_proof} to the one-device run (tolerance 0)")
+        check(same_v and same_t and same_rows and same_proof,
+              f"sharded: W={world} parts differ from the one-device run")
+    launches = read_counters(counters)
+    print(f"phase sharded: launches {launches}")
+    for name in SHARDED_PATH:
+        check(launches[name] > 0, f"sharded: kernel {name} was not launched on this path")
+
+    # each rank's kernel call beside the one-device call, CUDA events
+    fold_out = torch.empty(-(-m // min(SHARDED_WORLDS)) * d, dtype=torch.int64, device=DEVICE)
+    ctr0 = tssp.witness_and_mask(ent_key, 0, P)[2]
+    calls = {
+        "keystream_fold_p": (m, lambda lo, hi: aes.keystream_fold_p(
+            ent_key.aes, ctr0 + lo * (d // 2), (hi - lo) * d, out=fold_out[: (hi - lo) * d])),
+        "encrypt_b_fused": (n_enc, lambda lo, hi: eval_fused.encrypt_b_fused(
+            crs_key, P.ctr_s + lo * P.ctr_ct, vrs.sk, hi - lo, n, P.ctr_ct)),
+        "eval_mac_planes": (n_enc, lambda lo, hi: eval_fused.eval_mac_planes(
+            crs_key, P.ctr_s + lo * P.ctr_ct, coeffs[:, lo:hi].contiguous(), n, P.ctr_ct)),
+    }
+    for name, (total, call) in calls.items():
+        if name == "keystream_fold_p":  # one device: every row of v, as random_ssp does
+            whole = timed(lambda: tssp.random_ssp(ent_key, 0, P))[1]
+            what = f"random_ssp's {m} rows, {-(-m // tssp.TILE)} launches"
+        else:
+            call(0, total)
+            whole = cuda_ms(lambda: call(0, total), 3)
+            what = f"{total} terms, 1 launch"
+        for world in SHARDED_WORLDS:
+            ms = []
+            for r in range(world):
+                lo, hi = chunk_bounds(total, r, world)
+                call(lo, hi)
+                ms.append(cuda_ms(lambda: call(lo, hi), 3))
+            print(f"phase sharded: {name} W={world}: a rank's call "
+                  f"{', '.join(f'{x:.4f}' for x in ms)} ms; one device ({what}) {whole:.4f} ms "
+                  f"[{label}]")
+    del fold_out
+
+    # the CLI under torchrun, a world of 1 over NCCL, beside the one-device
+    # CLI: each a fresh process, so the stage walls hold its first calls
+    cli = ["-m", "c_lwe_snarks_tpu_torch", "--profile", "release", "--probe"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_run(cli, label, "one device")
+        world1 = cli_run(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"]
+                         + cli + ["--mesh", "1", "--save-dir", tmp], label, "torchrun --mesh 1")
+        same_crs = (pathlib.Path(tmp) / "crs.bin").read_bytes() == serial.crs_to_bytes(run.crs, P)
+        same_proof = (pathlib.Path(tmp) / "proof.bin").read_bytes() == serial.proof_to_bytes(
+            run.proof, P)
+    mesh_line = [line for line in world1.stderr.splitlines() if line.startswith("mesh:")]
+    print(f"phase sharded: torchrun --mesh 1: {'; '.join(mesh_line)}; crs.bin equal={same_crs}, "
+          f"proof.bin equal={same_proof} to the release run")
+    check(mesh_line == ["mesh: rank 0 of 1 (nccl)"], "sharded: the world of 1 is not an NCCL world")
+    check(same_crs and same_proof, "sharded: the world of 1 differs from the one-device run")
+    print(f"phase sharded: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -720,12 +910,14 @@ def main() -> int:
     phase_golden()
     run, release_launches = phase_release(label)
     stagewise_launches = phase_stagewise(run, label)
+    sharded_launches = phase_sharded(run, label)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": release_launches[name] if name in RELEASE_PATH else stagewise_launches[name],
          "launches_by_path": {"release": release_launches[name],
-                              "stagewise": stagewise_launches[name]},
+                              "stagewise": stagewise_launches[name],
+                              "sharded": sharded_launches[name]},
          **results[name]}
         for name, (src, rep) in KERNELS.items()
     ]

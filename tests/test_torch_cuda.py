@@ -118,6 +118,24 @@ def test_k4_encrypt_b_fused(cuda):
 
 
 @pytest.mark.gpu
+def test_encrypt_auto_past_k4_bound(cuda):
+    """At n = 6,380 K4 refuses, and encrypt_section(impl="auto") returns the
+    scan path's ciphertexts without launching it."""
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+
+    P = Params(d=16, m=8, n=6380)
+    key = sampling.PRGKey(SEED, cuda)
+    rng = np.random.default_rng(7)
+    sk = torch.from_numpy(rng.integers(0, 256, size=(P.n, 88), dtype=np.uint8)).to(cuda)
+    msgs = torch.from_numpy(rng.integers(0, P.p, size=3).astype(np.int64)).to(cuda)
+    errs = torch.from_numpy(rng.integers(0, 256, size=(3, 88), dtype=np.uint8)).to(cuda)
+    before = eval_fused.LAUNCHES["encrypt_b_fused"]
+    auto = tlwe.encrypt_section(key, 8, sk, msgs, errs, P, impl="auto")
+    assert eval_fused.LAUNCHES["encrypt_b_fused"] == before
+    _eq(auto, tlwe.encrypt_section(key, 8, sk, msgs, errs, P, impl="scan"))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,k,d,off", [
     (6, 1, 1, 3), (5, 8, 131, 16 * 7 + 8), (7, 3, 1030, 5), (2, 2, 4099, 184)])
 def test_k3_ragged_tiles(cuda, n, k, d, off):

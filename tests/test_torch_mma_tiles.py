@@ -430,3 +430,32 @@ def test_k4_guard_runs_before_any_launch(monkeypatch):
     with pytest.raises(ValueError, match="signed 32-bit"):
         tef.encrypt_b_fused(types.SimpleNamespace(device=cuda), 0, sk, 1, n, 92 * n)
     assert tef.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [6379, 6380])
+def test_encrypt_auto_takes_scan_past_k4_bound(monkeypatch, key, n):
+    """encrypt_section(impl="auto") sends an n past K4's signed bound to
+    the scan path before any key or tensor decides it: with K4's wrapper
+    replaced by one that fails past the bound, auto at n = 6,380 never
+    reaches it and gives the scan path's bytes; at n = 6,379 it takes K4."""
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.utils.params import Params
+
+    reached = []
+    real = tef.encrypt_b_fused
+
+    def k4(*args):
+        reached.append(args[4])
+        assert tef.fits_enc_bound(args[4]), "K4 reached past its bound"
+        return real(*args)
+
+    monkeypatch.setattr(tef, "encrypt_b_fused", k4)
+    P = Params(d=16, m=8, n=n)
+    gen = torch.Generator().manual_seed(n)
+    sk = torch.randint(0, 256, (n, 88), generator=gen, dtype=torch.uint8)
+    msgs = torch.randint(0, P.p, (3,), generator=gen)
+    errs = torch.randint(0, 256, (3, 88), generator=gen, dtype=torch.uint8)
+    auto = tlwe.encrypt_section(key, 8, sk, msgs, errs, P, impl="auto")
+    assert reached == ([n] if n < 6380 else [])
+    scan = tlwe.encrypt_section(key, 8, sk, msgs, errs, P, impl="scan")
+    assert torch.equal(auto, scan)
