@@ -12,6 +12,8 @@ keystream kernel (K1) and contracts it in torch; it gives the same bytes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -71,13 +73,15 @@ def ct_import(
     return torch.cat([a, b92[:, None, :DIGITS]], dim=1)
 
 
-def _p_bytes(params: Params, device) -> torch.Tensor:
-    return torch.tensor([(params.p >> (8 * i)) & 255 for i in range(4)], device=device)
+@functools.cache
+def _p_bytes(p: int, device) -> torch.Tensor:
+    """int64 [4]: p's little-endian bytes, on the device once."""
+    return torch.tensor([(p >> (8 * i)) & 255 for i in range(4)], device=device)
 
 
 def _b_rows(dot: torch.Tensor, msgs: torch.Tensor, errs: torch.Tensor, params: Params):
     """dot + p * e + m mod 2^704 as digit rows, dot given as int64 planes."""
-    pe_planes = errs.to(torch.int64)[None] * _p_bytes(params, errs.device).reshape(4, 1, 1)
+    pe_planes = errs.to(torch.int64)[None] * _p_bytes(params.p, errs.device).reshape(4, 1, 1)
     pe = dg.combine_shift_planes(pe_planes)
     m = u32_to_digits(msgs).to(torch.int64)
     return dg.carry_fold(dot + pe + m)
@@ -184,7 +188,7 @@ def smudge(
     ct: torch.Tensor, s_digits: torch.Tensor, sign_positive: torch.Tensor, params: Params
 ) -> torch.Tensor:
     """b += ±(uniform log_smudging bits) * p; only the b coordinate changes."""
-    sp = dg.scalar_mul_digits(s_digits, _p_bytes(params, ct.device))
+    sp = dg.scalar_mul_digits(s_digits, _p_bytes(params.p, ct.device))
     b = ct_b(ct)
     b_new = torch.where(sign_positive, dg.add_digits(b, sp), dg.sub_digits(b, sp))
     return torch.cat([ct_a(ct), b_new[..., None, :]], dim=-2)

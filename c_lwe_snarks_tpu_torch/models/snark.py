@@ -32,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -212,8 +211,13 @@ def prover_polys(
 
     With ``mesh`` (ssp.v: the rank's rows) the gated row-sum runs over the
     rank's rows (one int64 ``all_reduce``), v_0 comes from rank 0, and the
-    NTT's large products run on the 4-step transform."""
+    NTT's large products run on the 4-step transform.
+
+    t's true degree and leading coefficient are read from the device once,
+    first; after that nothing here moves data to the host (on the card:
+    K1 for delta, K7 for the row-sum, K6 for v^2 and the division)."""
     d, m = params.d, params.m
+    t_degree, t_lead = ntt.poly_degree_and_lead(ssp.t)
     delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
     if mesh is None:
         rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
@@ -224,7 +228,9 @@ def prover_polys(
     v = modp.addmod_p(v0, w)
     num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
     num[0] = modp.submod_p(num[0], 1)
-    h = ntt.poly_div_exact_mod_p(num, ssp.t, d, mesh=mesh)
+    # t is whole on every rank of a mesh, so every rank takes the same branch
+    # of the division and issues the same collectives
+    h = ntt.poly_div_exact_mod_p(num, ssp.t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
     return delta, w, v, h
 
 
@@ -377,10 +383,11 @@ def smudge_proof(ent_key: sampling.PRGKey, ent_offset: int, evals, params: Param
 
 
 @functools.cache
-def _test_error_thresholds() -> np.ndarray:
-    """p * 2^(64j) for j < 11 as uint8 digit rows [11, 88] (all < 2^704)."""
+def _test_error_thresholds(device) -> torch.Tensor:
+    """p * 2^(64j) for j < 11 as uint8 digit rows [11, 88] (all < 2^704),
+    on the device once."""
     p = (1 << 32) - 5
-    return dg.ints_to_digit_matrix([p << (64 * j) for j in range(11)])
+    return torch.tensor(dg.ints_to_digit_matrix([p << (64 * j) for j in range(11)]), device=device)
 
 
 def test_error_ok(vrs: VRS, proof: Proof, params: Params) -> torch.Tensor:
@@ -391,7 +398,7 @@ def test_error_ok(vrs: VRS, proof: Proof, params: Params) -> torch.Tensor:
     but computed literally.
     """
     dot = dg.bigint_dot(tlwe.ct_a(proof.b_w), vrs.sk)
-    thr = torch.tensor(_test_error_thresholds(), device=dot.device)
+    thr = _test_error_thresholds(dot.device)
     siz = -dg.digits_ge(dot[None, :], thr).to(torch.int64).sum()
     return siz < params.log_smudging // 8
 

@@ -31,6 +31,9 @@ NVCC_FLAGS = [
 # "u64", "i64"; every function takes the CUDA stream last and returns a CUDA
 # error code (of the launch, or of setting a kernel attribute) as int.
 SIGNATURES = {
+    "cls_ntt_pass": ("p", "p", "p", "p", "i64", "i64", "i64", "i64", "i64", "i64", "i64", "i64",
+                     "i64", "i64", "u32", "u32", "u32"),
+    "cls_gated_rowsum_p": ("p", "p", "i64", "i64", "p", "p", "p"),
     "cls_keystream_blocks": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_keystream_fold_p": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_eval_mac_planes": (

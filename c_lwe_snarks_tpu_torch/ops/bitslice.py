@@ -34,3 +34,15 @@ def transpose32(a: torch.Tensor) -> torch.Tensor:
         t = ((lo >> j) ^ hi) & m
         a = torch.stack([lo ^ (t << j), hi ^ t], dim=1).reshape(shape)
     return a
+
+
+def bytes_to_planes(words: torch.Tensor) -> torch.Tensor:
+    """Per-block words -> bit planes: words[b] (int64 [32, ...]) belongs to
+    block b of a 32-block group; planes[k] has bit b = bit k of block b's
+    word.  The same 32x32 transpose as the inverse."""
+    return transpose32(words)
+
+
+def planes_to_bytes(planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``bytes_to_planes`` (the transpose is an involution)."""
+    return transpose32(planes)

@@ -12,11 +12,14 @@ here).  The unsigned operands need none of the MXU's int8 recentring.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 DIGITS = 88  # mod-2^704 width in base-256 digits
+FULL_DIGITS = 92  # PRG bytes per sampled value (LOGQ_BYTES, src/lwe.h:29)
 
 
 # --------------------------------------------------------------------------
@@ -174,9 +177,8 @@ def digits_ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a >= b as unsigned big-ints over LE digit rows (broadcasting)."""
     d = a.to(torch.int64) - b.to(torch.int64)
     iota = torch.arange(d.shape[-1], device=d.device)
-    none = torch.tensor(-1, device=d.device)
-    gt_idx = torch.where(d > 0, iota, none).amax(-1)
-    lt_idx = torch.where(d < 0, iota, none).amax(-1)
+    gt_idx = torch.where(d > 0, iota, -1).amax(-1)
+    lt_idx = torch.where(d < 0, iota, -1).amax(-1)
     return gt_idx >= lt_idx  # equal (both -1) counts as >=
 
 
@@ -198,9 +200,14 @@ def mod_p(digits: torch.Tensor) -> torch.Tensor:
 
     sum_k d_k * (256^k mod p): each term < 2^40, 88 of them < 2^47.
     """
-    k = digits.shape[-1]
-    w = torch.tensor([pow(256, i, _P) for i in range(k)], device=digits.device)
+    w = _radix_mod_p(digits.shape[-1], digits.device)
     return (digits.to(torch.int64) * w).sum(-1) % _P
+
+
+@functools.cache
+def _radix_mod_p(k: int, device) -> torch.Tensor:
+    """int64 [k]: 256^i mod p, on the device once."""
+    return torch.tensor([pow(256, i, _P) for i in range(k)], device=device)
 
 
 def sub_mod_p(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

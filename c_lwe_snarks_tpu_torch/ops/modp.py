@@ -8,21 +8,28 @@ intermediate reaches 2^63, and every result is the canonical residue in
 (including ``add_u32_mod_p``'s double-wrap window, which exact int64
 arithmetic covers by construction).
 
-The contractions (``gated_rowsum_mod_p``, ``matvec_mod_p``) run as
+``matvec_mod_p`` and the plain version of the gated row-sum run as
 float64 matrix products: torch refuses integer ``mm`` on CUDA, and a
 float64 sum of integers is exact while every partial sum stays below
-2^53, which the operand splits here guarantee.
+2^53, which the operand splits here guarantee.  On a CUDA tensor the
+gated row-sum is K7 (``csrc/rowsum.cu``); ``LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
+
 P = (1 << 32) - 5  # plaintext modulus (GAMMA_P)
 
 # rows per float64 chunk in the contractions: bounds the temporary at
 # CHUNK x d x 8 bytes (256 MiB at d = 2^15)
 _CHUNK = 1024
+# rows a CUDA block of K7 sums (csrc/rowsum.cu: kChunkRows, also its columns)
+ROWSUM_CHUNK_ROWS = 256
+
+LAUNCHES = {"gated_rowsum_p": 0}
 
 
 def mul32(a, b):
@@ -111,12 +118,11 @@ def poly_eval_mod_p(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return sum_mod_p(mulmod_p(coeffs, pw))
 
 
-def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """sum_{i : gate_i} v[i, :] mod p — the witness row selection.
+def gated_rowsum_plain(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """K7's plain version: one float64 vector-matrix product per row chunk.
 
-    v: int64 [m, d] (entries < p); gate: 0/1 [m].  One float64
-    vector-matrix product per row chunk: a 0/1-weighted sum of m < 2^21
-    words is < 2^53, so it is exact.
+    v: int64 [m, d] (entries < p); gate: 0/1 [m].  A 0/1-weighted sum of
+    m < 2^21 words is < 2^53, so it is exact.
     """
     m, d = v.shape
     assert m < 1 << 21, m
@@ -126,6 +132,32 @@ def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
         part = g[lo : lo + _CHUNK] @ v[lo : lo + _CHUNK].to(torch.float64)
         total += part.to(torch.int64)
     return total % P
+
+
+def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """sum_{i : gate_i} v[i, :] mod p — the witness row selection.
+
+    v: int64 [m, d] (entries < p); gate: 0/1 uint8 or bool [m].  K7: on a
+    CUDA tensor, one launch of ``csrc/rowsum.cu``, which reads only the
+    gated rows; v must be contiguous there (else ValueError).  On the CPU,
+    ``gated_rowsum_plain``."""
+    m, d = v.shape
+    if v.device.type == "cpu":
+        return gated_rowsum_plain(v, gate)
+    if v.dtype != torch.int64 or not v.is_contiguous() or m >= 1 << 21:
+        raise ValueError(f"v: expected a contiguous int64 [m < 2^21, d], got {v.dtype} "
+                         f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
+    if gate.shape != (m,) or gate.device != v.device:
+        raise ValueError(f"gate: expected [{m}] on {v.device}, got {tuple(gate.shape)} on {gate.device}")
+    gate = gate.view(torch.uint8) if gate.dtype == torch.bool else gate.to(torch.uint8)
+    out = torch.empty(d, dtype=torch.int64, device=v.device)
+    if m == 0 or d == 0:
+        return out.zero_()
+    partial = torch.empty(-(-m // ROWSUM_CHUNK_ROWS), d, dtype=torch.int64, device=v.device)
+    done = torch.empty(-(-d // ROWSUM_CHUNK_ROWS), dtype=torch.int32, device=v.device)
+    _build.launch("cls_gated_rowsum_p", v, gate.contiguous(), m, d, partial, done, out)
+    LAUNCHES["gated_rowsum_p"] += 1
+    return out
 
 
 def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,19 @@ Port of ``c_lwe_snarks_tpu/ops/ntt.py``.  p - 1 has
 2-adicity 1, so each product runs over three NTT-friendly primes below
 2^31.1 and is reconstructed mod p (exact: the integer coefficients of a
 product of degree-< 2^15 polynomials with entries < p are < 2^79 <
-q1 * q2 * q3).  A product of two residues is < 2^62.2, so butterflies use
-plain int64 ``%`` — no Montgomery form.  The three primes run as a
-leading tensor axis.  Only results mod p are part of the contract.
+q1 * q2 * q3).  Only results mod p are part of the contract.
+
+On a CUDA tensor every transform is K6 (``csrc/ntt.cu``): a product is
+two launches for n <= ``SMEM_N`` and four above, over all three primes
+and the batch, with the pointwise product, the n^-1 scale and the CRT
+inside the inverse; its tables are built once per (n, device).
+``LAUNCHES`` counts its launches.  On the CPU the plain version runs:
+radix-2 stages in int64 (a product of two residues is < 2^62.2, so
+butterflies use plain ``%``), the three primes as a leading tensor axis.
 
 Given a mesh (``parallel.mesh``) of W > 1 ranks, a large 1-D product runs
-as a 4-step (Bailey) transform split over the ranks (``_poly_mul_4step``).
+as a 4-step (Bailey) transform split over the ranks (``_poly_mul_4step``);
+its local transforms are K6 launches on the card.
 """
 
 from __future__ import annotations
@@ -20,9 +27,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import modp
+from . import _build, modp
 
 NTT_PRIMES = (2013265921, 1811939329, 2281701377)  # 15*2^27+1, 27*2^26+1, 17*2^27+1
+SMEM_N = 4096  # residues of one prime a K6 pass holds (csrc/ntt.cu: kSmemN); above, four-step
+
+LAUNCHES = {"ntt": 0}
 
 
 @functools.cache
@@ -71,34 +81,47 @@ def _tables_np(n: int):
     return rev, fwd, inv, n_inv
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on the device: from pinned memory, without a host sync."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@functools.cache
 def _tables(n: int, device):
+    """The plain version's tables of ``_tables_np`` on a device, made once."""
     rev, fwd, inv, n_inv = _tables_np(n)
-    t = lambda a: torch.tensor(a.astype(np.int64), device=device)
+    t = lambda a: _upload(a.astype(np.int64), device)
     return t(rev), [t(x) for x in fwd], [t(x) for x in inv], t(n_inv)
 
 
+@functools.cache
 def _qs(ndim: int, device) -> torch.Tensor:
-    return torch.tensor(NTT_PRIMES, device=device).reshape((3,) + (1,) * (ndim - 1))
+    return _upload(np.array(NTT_PRIMES, np.int64), device).reshape((3,) + (1,) * (ndim - 1))
 
 
-def _ntt(x: torch.Tensor, stage_tw, rev) -> torch.Tensor:
-    """Radix-2 DIT NTT along the last axis; x int64 [3, ..., n] mod q."""
+def _ntt(x: torch.Tensor, stage_tw, rev, q: torch.Tensor | None = None) -> torch.Tensor:
+    """Radix-2 DIT NTT along the last axis; x int64 [np, ..., n] mod the
+    primes q (default the three, [3, 1, ...]), stage twiddles [np, half]."""
     n = x.shape[-1]
     x = x[..., rev]
-    q = _qs(x.dim() + 1, x.device)
+    q = _qs(x.dim() + 1, x.device) if q is None else q
     for s, tw in enumerate(stage_tw, start=1):
         length = 1 << s
         half = length // 2
         v = x.reshape(*x.shape[:-1], n // length, 2, half)
         u, w = v[..., 0, :], v[..., 1, :]
-        twb = tw.reshape((3,) + (1,) * (x.dim() - 1) + (half,))
+        twb = tw.reshape((tw.shape[0],) + (1,) * (x.dim() - 1) + (half,))
         wv = w * twb % q
         x = torch.stack([(u + wv) % q, (u - wv) % q], dim=-2).reshape(x.shape)
     return x
 
 
-def _poly_mul_cyclic(ap: torch.Tensor, bp: torch.Tensor | None) -> torch.Tensor:
-    """Cyclic product mod p of padded pow2-length arrays (bp None: square)."""
+def _poly_mul_plain(ap: torch.Tensor, bp: torch.Tensor | None) -> torch.Tensor:
+    """K6's plain version: cyclic product mod p of padded pow2-length
+    arrays (bp None: square)."""
     n = ap.shape[-1]
     rev, fwd, inv, n_inv = _tables(n, ap.device)
     if bp is None:
@@ -116,6 +139,183 @@ def _poly_mul_cyclic(ap: torch.Tensor, bp: torch.Tensor | None) -> torch.Tensor:
     out = _ntt(prod, inv, rev)
     out = out * n_inv.reshape((3,) + (1,) * (out.dim() - 1)) % _qs(out.dim(), ap.device)
     return crt_to_mod_p(out[0], out[1], out[2])
+
+
+def _fit_len(q: torch.Tensor, out_len: int) -> torch.Tensor:
+    """The last axis cut or zero-padded to out_len."""
+    if q.shape[-1] >= out_len:
+        return q[..., :out_len]
+    return torch.nn.functional.pad(q, (0, out_len - q.shape[-1]))
+
+
+def _poly_mul_cyclic(a: torch.Tensor, b: torch.Tensor | None, n: int | None = None) -> torch.Tensor:
+    """Cyclic product mod p at length n (default a's) of arrays of at most n
+    entries, zero-padded to n (b None: square).  K6 on a CUDA tensor, two
+    or four launches (``_k6_product``); the plain version on the CPU."""
+    n = a.shape[-1] if n is None else n
+    if a.device.type == "cpu":
+        return _poly_mul_plain(_fit_len(a, n), None if b is None else _fit_len(b, n))
+    _require_cuda(a)
+    return _k6_product(a, b, n)
+
+
+# --------------------------------------------------------------------------
+# K6 (csrc/ntt.cu): one launch is one pass over all primes and the batch.
+# --------------------------------------------------------------------------
+
+# pass flags, as csrc/ntt.cu names them
+_IN_INT64, _IN_PRODUCT, _INVERSE, _TWIDDLE = 1, 2, 4, 8
+_SCALE, _SCALE_MONT, _OUT_INT64, _OUT_CRT = 16, 32, 64, 128
+
+
+def _require_cuda(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+
+
+@functools.cache
+def _k6_table_np(n: int) -> np.ndarray:
+    """uint32 [3, 2n + 4] per prime: w^e and Shoup's floor(w^e * 2^32 / q)
+    for e < n (w a primitive n-th root of unity, the plain version's roots),
+    then n^-1, n^-1 * 2^32 mod q and their Shoup companions."""
+    rows = []
+    for q in NTT_PRIMES:
+        w = pow(_generator(q), (q - 1) // n, q)
+        pw = _powers_np(w, n, q)
+        n_inv = pow(n, q - 2, q)
+        scale = np.array([n_inv, n_inv * (1 << 32) % q], np.uint64)
+        shoup = lambda x: (x << np.uint64(32)) // np.uint64(q)
+        rows.append(np.concatenate([pw, shoup(pw), np.stack([scale, shoup(scale)], 1).reshape(-1)]))
+    return np.stack(rows).astype(np.uint32)
+
+
+@functools.cache
+def _k6_table(n: int, device) -> torch.Tensor:
+    """``_k6_table_np`` on the device (int32 bits), uploaded once."""
+    return _upload(_k6_table_np(n).view(np.int32), device)
+
+
+def _k6_pass(inp, in2, out, table, *, rows, n, L, cols_pass, flags, rows_a=None, len_a=None,
+             len_b=None, in_pstride=0, out_pstride=0, p0=0, np_=3) -> None:
+    """One K6 launch: rows x (n / L) transforms of length L, as the columns
+    (stride n / L) or the rows (stride 1) of each row's [n / L, L] view."""
+    istride, tstride = (n // L, 1) if cols_pass else (1, L)
+    _build.launch(
+        "cls_ntt_pass", inp, in2, out, table, rows, rows if rows_a is None else rows_a,
+        n if len_a is None else len_a, n if len_b is None else len_b, in_pstride, out_pstride,
+        n, L, istride, tstride, flags, p0, np_)
+    LAUNCHES["ntt"] += 1
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def _k6_product(a: torch.Tensor, b: torch.Tensor | None, n: int) -> torch.Tensor:
+    """int64 [..., n]: the cyclic product mod p of a and b (or a^2).
+
+    Forward of both operands in one pass (their rows one batch, read as
+    int64 and zero-extended to n), then the inverse with the Montgomery
+    pointwise product at its load and the scale and CRT at its store; for
+    n > SMEM_N each transform is a four-step of two passes, in place in
+    one uint32 scratch [3, rows, n]."""
+    if b is not None and a.shape[:-1] != b.shape[:-1]:
+        lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+        a, b = a.expand(*lead, a.shape[-1]), b.expand(*lead, b.shape[-1])
+    lead = a.shape[:-1]
+    a2 = _rows(a)
+    b2 = a2 if b is None else _rows(b)
+    nb = a2.shape[0]
+    rows = nb if b is None else 2 * nb
+    table = _k6_table(n, a.device)
+    scratch = torch.empty(3, rows, n, dtype=torch.int32, device=a.device)
+    flat = scratch.view(-1)
+    fb = flat if b is None else flat[nb * n :]  # the second factor's rows, or the first's again
+    out = torch.empty(nb, n, dtype=torch.int64, device=a.device)
+    fwd = dict(rows=rows, rows_a=nb, len_a=a2.shape[-1], len_b=b2.shape[-1],
+               out_pstride=rows * n)
+    res = dict(in_pstride=rows * n, out_pstride=rows * n)
+    if n <= SMEM_N:
+        _k6_pass(a2, b2, scratch, table, n=n, L=n, cols_pass=False, flags=_IN_INT64, **fwd)
+        _k6_pass(scratch, fb, out, table, rows=nb, n=n, L=n, cols_pass=False,
+                 flags=_IN_PRODUCT | _INVERSE | _SCALE_MONT | _OUT_CRT, **res)
+    else:
+        n1, n2 = _split4(n)
+        _k6_pass(a2, b2, scratch, table, n=n, L=n1, cols_pass=True, flags=_IN_INT64 | _TWIDDLE,
+                 **fwd)
+        _k6_pass(scratch, scratch, scratch, table, rows=rows, n=n, L=n2, cols_pass=False,
+                 flags=0, **res)
+        _k6_pass(scratch, fb, scratch, table, rows=nb, n=n, L=n2, cols_pass=False,
+                 flags=_IN_PRODUCT | _INVERSE | _TWIDDLE, **res)
+        _k6_pass(scratch, scratch, out, table, rows=nb, n=n, L=n1, cols_pass=True,
+                 flags=_INVERSE | _SCALE_MONT | _OUT_CRT, **res)
+    return out.reshape(*lead, n)
+
+
+def _k6_transform(x: torch.Tensor, inverse: bool, p0: int = 0) -> torch.Tensor:
+    """int64 residues [np, ..., n] of primes p0 .. p0 + np - 1 -> their
+    transforms in natural order (inverse: scaled by n^-1)."""
+    np_, n = x.shape[0], x.shape[-1]
+    x = x.contiguous()
+    rows = x.numel() // (np_ * n)
+    table = _k6_table(n, x.device)
+    out = torch.empty_like(x)
+    kw = dict(rows=rows, n=n, p0=p0, np_=np_, in_pstride=rows * n, out_pstride=rows * n)
+    if n <= SMEM_N:
+        flags = _IN_INT64 | _OUT_INT64 | (_INVERSE | _SCALE if inverse else 0)
+        _k6_pass(x, x, out, table, L=n, cols_pass=False, flags=flags, **kw)
+        return out
+    n1, n2 = _split4(n)
+    scratch = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    if not inverse:
+        _k6_pass(x, x, scratch, table, L=n1, cols_pass=True, flags=_IN_INT64 | _TWIDDLE, **kw)
+        _k6_pass(scratch, scratch, out, table, L=n2, cols_pass=False, flags=_OUT_INT64, **kw)
+        return out.reshape(np_, rows, n1, n2).transpose(-1, -2).reshape(x.shape)  # X[k1 + n1 k2]
+    xt = x.reshape(np_, rows, n2, n1).transpose(-1, -2).contiguous()  # [k1, k2]
+    _k6_pass(xt, xt, scratch, table, L=n2, cols_pass=False,
+             flags=_IN_INT64 | _INVERSE | _TWIDDLE, **kw)
+    _k6_pass(scratch, scratch, out, table, L=n1, cols_pass=True,
+             flags=_INVERSE | _SCALE | _OUT_INT64, **kw)
+    return out
+
+
+def _transform(x: torch.Tensor, inverse: bool, p0: int = 0) -> torch.Tensor:
+    """Residues [np, ..., n] of primes p0.. -> their NTTs in natural order
+    (inverse: scaled by n^-1): K6 on a CUDA tensor, the plain version on
+    the CPU."""
+    if x.device.type != "cpu":
+        _require_cuda(x)
+        return _k6_transform(x, inverse, p0)
+    return _transform_plain(x, inverse, p0)
+
+
+def _transform_plain(x: torch.Tensor, inverse: bool, p0: int = 0) -> torch.Tensor:
+    """The plain version of ``_k6_transform``: ``_ntt`` and the scale."""
+    n = x.shape[-1]
+    rev, fwd, inv, n_inv = _tables(n, x.device)
+    lo, hi = p0, p0 + x.shape[0]
+    q = _qs(x.dim(), x.device)[lo:hi]
+    out = _ntt(x, [tw[lo:hi] for tw in (inv if inverse else fwd)], rev, _qs(x.dim() + 1, x.device)[lo:hi])
+    if inverse:
+        out = out * n_inv[lo:hi].reshape((-1,) + (1,) * (x.dim() - 1)) % q
+    return out
+
+
+def _prime_index(q: int) -> int:
+    if q not in NTT_PRIMES:
+        raise ValueError(f"q must be one of NTT_PRIMES {NTT_PRIMES}, got {q}")
+    return NTT_PRIMES.index(q)
+
+
+def ntt_forward(x: torch.Tensor, q: int) -> torch.Tensor:
+    """NTT mod q (one of ``NTT_PRIMES``) along the last axis, natural order:
+    X[k] = sum_j x[j] w^(jk), w = g^((q - 1) / n).  x: int64 [..., n] < q."""
+    return _transform(x[None], False, _prime_index(q))[0]
+
+
+def ntt_inverse(x: torch.Tensor, q: int) -> torch.Tensor:
+    """The inverse of ``ntt_forward``, scaled by n^-1."""
+    return _transform(x[None], True, _prime_index(q))[0]
 
 
 _Q1, _Q2, _Q3 = NTT_PRIMES
@@ -170,6 +370,12 @@ def _twiddle4_np(n1: int, n2: int, inverse: bool) -> np.ndarray:
     return np.stack(out).astype(np.int64)
 
 
+@functools.cache
+def _twiddle4(n1: int, n2: int, inverse: bool, device) -> torch.Tensor:
+    """``_twiddle4_np`` on the device, uploaded once."""
+    return _upload(_twiddle4_np(n1, n2, inverse), device)
+
+
 def _transpose_sharded(y: torch.Tensor, group, world: int) -> torch.Tensor:
     """[3, r, c] (rows of this rank, all columns) -> [3, c / world, world * r]
     (this rank's chunk of the columns, all rows, transposed): one
@@ -190,22 +396,20 @@ def _poly_mul_4step(ap: torch.Tensor, bp: torch.Tensor | None, mesh) -> torch.Te
     n1, n2 = _split4(n)
     c = n2 // world
     dev = ap.device
-    rev1, fwd1, inv1, n1_inv = _tables(n1, dev)
-    rev2, fwd2, inv2, n2_inv = _tables(n2, dev)
-    tw_f, tw_i = (torch.tensor(_twiddle4_np(n1, n2, inv)[:, rank * c : (rank + 1) * c], device=dev)
+    tw_f, tw_i = (_twiddle4(n1, n2, inv, dev)[:, rank * c : (rank + 1) * c]
                   for inv in (False, True))  # [3, c, n1]
     q = _qs(3, dev)
 
     def fwd(x):
         cols = x.reshape(n1, n2)[:, rank * c : (rank + 1) * c].T  # [c (j2), n1 (j1)]
-        y = _ntt(cols.expand(3, c, n1) % q, fwd1, rev1) * tw_f % q  # j1 -> k1
-        return _ntt(_transpose_sharded(y, group, world), fwd2, rev2)  # [3, n1/W, n2]: j2 -> k2
+        y = _transform(cols.expand(3, c, n1) % q, False) * tw_f % q  # j1 -> k1
+        return _transform(_transpose_sharded(y, group, world), False)  # [3, n1/W, n2]: j2 -> k2
 
     fa = fwd(ap)
     prod = fa * (fa if bp is None else fwd(bp)) % q
-    y = _ntt(prod, inv2, rev2) * n2_inv.reshape(3, 1, 1) % q  # k2 -> j2
+    y = _transform(prod, True)  # k2 -> j2
     y = _transpose_sharded(y, group, world) * tw_i % q  # [3, c (j2), n1 (k1)]
-    y = _ntt(y, inv1, rev1) * n1_inv.reshape(3, 1, 1) % q  # k1 -> j1
+    y = _transform(y, True)  # k1 -> j1
     part = crt_to_mod_p(y[0], y[1], y[2]).contiguous()  # [c, n1]
     out = torch.empty(world, c, n1, dtype=part.dtype, device=dev)
     dist.all_gather(list(out.unbind(0)), part, group=group)
@@ -240,12 +444,11 @@ def poly_mul_mod_p(
     if out_len is None:
         out_len = full
     n = _next_pow2(max(full, 2))
-    ap = torch.nn.functional.pad(a, (0, n - la))
-    bp = None if a is b else torch.nn.functional.pad(b, (0, n - lb))
+    square = a is b
     if _shardable(n, a, b, mesh, min_shard_n):
-        out = _poly_mul_4step(ap, bp, mesh)
+        out = _poly_mul_4step(_fit_len(a, n), None if square else _fit_len(b, n), mesh)
     else:
-        out = _poly_mul_cyclic(ap, bp)
+        out = _poly_mul_cyclic(a, None if square else b, n)
     out = out[..., : min(out_len, full)]
     if out_len > full:
         out = torch.nn.functional.pad(out, (0, out_len - full))
@@ -253,62 +456,79 @@ def poly_mul_mod_p(
 
 
 def poly_inv_series_mod_p(
-    t: torch.Tensor, out_len: int, *, mesh=None, min_shard_n: int = 4096
+    t: torch.Tensor, out_len: int, *, seed: int | None = None, mesh=None,
+    min_shard_n: int = 4096,
 ) -> torch.Tensor:
     """Power-series inverse of t mod x^out_len (t[0] invertible), Newton;
-    with ``mesh`` the large levels run on the 4-step transform."""
-    s = modp.invmod_p(t[..., :1])
+    ``seed``, if given, is t[0]^-1 mod p, known on the host; with ``mesh``
+    the large levels run on the 4-step transform."""
+    if seed is None:
+        s = modp.invmod_p(t[..., :1])
+    else:
+        s = torch.full(t.shape[:-1] + (1,), seed, dtype=torch.int64, device=t.device)
     k = 1
     while k < out_len:
         k2 = min(2 * k, _next_pow2(out_len))
         ts = poly_mul_mod_p(t[..., :k2], s, out_len=k2, mesh=mesh, min_shard_n=min_shard_n)
-        two = torch.zeros_like(ts)
-        two[..., 0] = 2
-        s = poly_mul_mod_p(s, modp.submod_p(two, ts), out_len=k2, mesh=mesh,
-                           min_shard_n=min_shard_n)
+        two_minus = modp.submod_p(0, ts)  # 2 - ts: the 2 added in place (no host scalar copied)
+        two_minus[..., 0].add_(2).remainder_(modp.P)
+        s = poly_mul_mod_p(s, two_minus, out_len=k2, mesh=mesh, min_shard_n=min_shard_n)
         k = k2
     return s[..., :out_len]
 
 
 def poly_true_degree(x: torch.Tensor) -> int:
     """Index of the highest nonzero coefficient (-1 for the zero poly)."""
-    nz = torch.nonzero(x).flatten()
-    return int(nz[-1]) if nz.numel() else -1
+    return poly_degree_and_lead(x)[0]
+
+
+def poly_degree_and_lead(x: torch.Tensor) -> tuple[int, int]:
+    """(true degree, its coefficient) of a 1-D polynomial in one read from
+    the device; (-1, 0) for the zero polynomial."""
+    idx = torch.where(x != 0, torch.arange(x.shape[-1], device=x.device), -1).amax().reshape(1)
+    deg, lead = torch.cat([idx, x.index_select(0, idx.clamp(min=0))]).tolist()
+    return deg, lead if deg >= 0 else 0
 
 
 def _div_rev_core(
-    num: torch.Tensor, den: torch.Tensor, ql: int, mesh=None, min_shard_n: int = 4096
+    num: torch.Tensor, den: torch.Tensor, ql: int, mesh=None, min_shard_n: int = 4096,
+    seed: int | None = None,
 ) -> torch.Tensor:
-    """Reversed-series exact division; den's last formal entry nonzero."""
-    inv = poly_inv_series_mod_p(torch.flip(den, (-1,)), ql, mesh=mesh, min_shard_n=min_shard_n)
+    """Reversed-series exact division; den's last formal entry nonzero
+    (its inverse mod p is ``seed``, if given)."""
+    inv = poly_inv_series_mod_p(torch.flip(den, (-1,)), ql, seed=seed, mesh=mesh,
+                                min_shard_n=min_shard_n)
     qr = poly_mul_mod_p(torch.flip(num, (-1,))[..., :ql], inv, out_len=ql, mesh=mesh,
                         min_shard_n=min_shard_n)
     return torch.flip(qr, (-1,))
 
 
-def _fit_len(q: torch.Tensor, out_len: int) -> torch.Tensor:
-    if q.shape[-1] >= out_len:
-        return q[..., :out_len]
-    return torch.nn.functional.pad(q, (0, out_len - q.shape[-1]))
-
-
 def poly_div_exact_mod_p(
-    num: torch.Tensor, den: torch.Tensor, quot_len: int, *, mesh=None, min_shard_n: int = 4096
+    num: torch.Tensor, den: torch.Tensor, quot_len: int, *, den_degree: int | None = None,
+    den_lead: int | None = None, mesh=None, min_shard_n: int = 4096,
 ) -> torch.Tensor:
     """Exact quotient num / den mod p with FLINT true-degree semantics.
 
     When den's last formal coefficient is zero both operands are shifted
     by x^(ld-1-deg den), so the reversed series inverts a nonzero
     constant.  Returns the low quot_len coefficients of the quotient.
-    With ``mesh`` the large products run on the 4-step transform.
+    ``den_degree`` (den's true degree) and ``den_lead`` (its coefficient)
+    are read from the device here unless the caller gives them; given
+    both, the division moves nothing from the device to the host.  With
+    ``mesh`` the large products run on the 4-step transform.
     """
     assert num.dim() == 1 and den.dim() == 1, "division is single-polynomial"
     ln, ld = num.shape[-1], den.shape[-1]
+    if den_degree is None:
+        den_degree, den_lead = poly_degree_and_lead(den)
+    # the reversed series starts at den's leading coefficient in both branches
+    seed = None if den_lead is None else pow(den_lead, modp.P - 2, modp.P)
     # den is whole on every rank, so every rank takes the same branch and
     # issues the same collectives
-    shift = ld - 1 - poly_true_degree(den)
+    shift = ld - 1 - den_degree
     if shift == 0:
-        return _fit_len(_div_rev_core(num, den, max(ln - ld + 1, 1), mesh, min_shard_n), quot_len)
+        return _fit_len(_div_rev_core(num, den, max(ln - ld + 1, 1), mesh, min_shard_n, seed),
+                        quot_len)
     num2 = torch.roll(torch.nn.functional.pad(num, (0, ld - 1)), shift)
     den2 = torch.roll(den, shift)
-    return _fit_len(_div_rev_core(num2, den2, ln, mesh, min_shard_n), quot_len)
+    return _fit_len(_div_rev_core(num2, den2, ln, mesh, min_shard_n, seed), quot_len)

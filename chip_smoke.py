@@ -53,6 +53,7 @@ Needs one CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import pathlib
@@ -79,11 +80,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "c_lwe_snarks_tpu/ops/eval_fused.py:335"),
     "keystream_blocks_v1": ("c_lwe_snarks_tpu_torch/csrc/keystream_bitsliced.cu",
                             "c_lwe_snarks_tpu/ops/aes_pallas.py:73"),
+    # K6 and K7 port jnp code the JAX package compiles into its programs
+    "ntt": ("c_lwe_snarks_tpu_torch/csrc/ntt.cu", "c_lwe_snarks_tpu/ops/ntt.py:266"),
+    "gated_rowsum_p": ("c_lwe_snarks_tpu_torch/csrc/rowsum.cu", "c_lwe_snarks_tpu/ops/modp.py:162"),
 }
 # kernels each path must launch at least once
-RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused")
-STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1")
-SHARDED_PATH = RELEASE_PATH
+RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused", "ntt",
+                "gated_rowsum_p")
+STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt",
+                  "gated_rowsum_p")
+# the sharded phase's parts: random_ssp's tiles reach K7; the 4-step NTT
+# needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
+SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
+                "gated_rowsum_p")
 SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.  The
@@ -118,6 +127,17 @@ PEAK_INT8 = 1979e12
 CF_OPS = 4 + 14 * 4 * 8
 FOLD_OPS = 2 + 1 + 2 + 2
 BITSLICED_OPS = (115 * 16 * 14 + 108 * 4 * 13 + 128 * 15 + 4 * 480) / 32 / 2
+# K6 (ntt.cu), 32-bit operations: a radix-2 butterfly 16 (Shoup's multiply
+# 9: the high product, the two 64-bit products x w and qhat q of 2 each, a
+# 64-bit subtraction of 2, a compare-select of 2; the add mod q with its
+# wrap test 4; the subtraction mod q 3); an element of the pointwise
+# (Montgomery) product 8 and of the n^-1 scale 9 a prime; the CRT 40 an
+# output (five Shoup multiplies' worth and the subtractions and adds).  The
+# four-step's twiddles and reductions of the inputs are the design's, not
+# counted.  K7 (rowsum.cu): one 64-bit add (2) a gated entry read.
+BUTTERFLY_OPS = 16
+POINTWISE_OPS = 8 + 9
+CRT_OPS = 40
 
 
 def check(cond, msg: str) -> None:
@@ -174,9 +194,9 @@ def bound(nbytes: float, int32_ops: float, int8_ops: float = 0.0) -> dict:
 
 
 def reset_counters() -> tuple:
-    from c_lwe_snarks_tpu_torch.ops import aes, eval_fused
+    from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, modp, ntt
 
-    counters = (aes.LAUNCHES, eval_fused.LAUNCHES)
+    counters = (aes.LAUNCHES, eval_fused.LAUNCHES, ntt.LAUNCHES, modp.LAUNCHES)
     for c in counters:
         for name in c:
             c[name] = 0
@@ -185,6 +205,130 @@ def reset_counters() -> tuple:
 
 def read_counters(counters) -> dict:
     return {name: c[name] for c in counters for name in c}
+
+
+def product_bound(la: int, lb: int, n: int, rows: int = 1, square: bool = False) -> tuple:
+    """(bytes, operations) of K6's cyclic product at length n of rows pairs
+    of int64 operands of la and lb entries (a square reads one)."""
+    transforms = 3 * rows * (2 if square else 3)
+    ops = (transforms * n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
+           + rows * n * (3 * POINTWISE_OPS + CRT_OPS))
+    return 8 * rows * (la + (0 if square else lb) + n), ops
+
+
+def division_bound(ln: int, ld: int) -> dict:
+    """The bound of poly_div_exact_mod_p(num [ln], den [ld]) with den's last
+    entry nonzero: the sum of its products' (the Newton levels' two a level,
+    then the quotient's), as ops/ntt.py issues them."""
+    ql = max(ln - ld + 1, 1)
+    nbytes = ops = 0
+    k = 1
+    while k < ql:
+        k2 = min(2 * k, 1 << (ql - 1).bit_length())
+        for la, lb in ((k2, k), (k, k2)):
+            b, o = product_bound(la, lb, 1 << (la + lb - 2).bit_length())
+            nbytes, ops = nbytes + b, ops + o
+        k = k2
+    b, o = product_bound(ql, ql, 1 << (2 * ql - 2).bit_length())
+    return bound(nbytes + b, ops + o)
+
+
+@contextlib.contextmanager
+def plain_products():
+    """Every product of the polynomial engine by the plain version, on
+    whatever device its operands are (the yardstick of K6's calls)."""
+    from c_lwe_snarks_tpu_torch.ops import ntt
+
+    k6 = ntt._poly_mul_cyclic
+
+    def plain(a, b, n=None):
+        n = a.shape[-1] if n is None else n
+        return ntt._poly_mul_plain(ntt._fit_len(a, n), None if b is None else ntt._fit_len(b, n))
+
+    ntt._poly_mul_cyclic = plain
+    try:
+        yield
+    finally:
+        ntt._poly_mul_cyclic = k6
+
+
+def poly_cases(P, ent_key) -> dict:
+    """K6's and K7's cases at the release main path's shapes (the case
+    format of phase_kernels; the last case of each is reported): the
+    prover's own v, t and witness from a release random_ssp."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+    from c_lwe_snarks_tpu_torch.ops import modp, ntt
+
+    d, m = P.d, P.m
+    off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
+    wits, ssp = tssp.random_ssp(ent_key, 0, P)
+    mask = torch.cat([torch.ones(1, dtype=torch.uint8, device=DEVICE), wits[: m - 1]])
+    v = tsnark.prover_polys(ent_key, off_prove, ssp, wits, P)[2]
+    num = ntt.poly_mul_mod_p(v, v)
+    num[0] = modp.submod_p(num[0], 1)
+    degree, lead = ntt.poly_degree_and_lead(ssp.t)
+    check(degree == d - 1, f"release t has degree {degree}")
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    qs = torch.tensor(ntt.NTT_PRIMES, device=DEVICE).reshape(3, 1, 1)
+    x = (torch.randint(0, 1 << 31, (3, 64, 256), generator=gen, device=DEVICE) % qs).contiguous()
+    q_max = (qs - 1).expand(3, 2, d).contiguous()
+    p_max = torch.full((d,), modp.P - 1, dtype=torch.int64, device=DEVICE)
+    t_rev = torch.flip(ssp.t, (0,))
+    s_quarter = torch.randint(0, modp.P, (d // 4,), generator=gen, device=DEVICE)
+    all_max = torch.full((tssp.TILE, d), modp.P - 1, dtype=torch.int64, device=DEVICE)
+    ones = torch.ones(tssp.TILE, dtype=torch.uint8, device=DEVICE)
+    n16, n15 = 2 * d, d
+
+    def k7_bound(gate, cols):
+        gated = int(gate.sum())
+        return bound(8 * gated * cols + gate.numel() + 8 * cols, 2 * gated * cols)
+
+    def div(k6: bool):
+        def call():
+            return ntt.poly_div_exact_mod_p(num, ssp.t, d, den_degree=degree, den_lead=lead)
+        if k6:
+            return call()
+        with plain_products():
+            return call()
+
+    return {
+        "ntt": [
+            ("a batched transform: [3, 64, 256] residues", 20,
+             lambda: ntt._transform(x, False), lambda: ntt._transform_plain(x, False),
+             bound(2 * 8 * x.numel(), x.numel() // 2 * 8 * BUTTERFLY_OPS)),
+            (f"the wrap: inverse transforms of [3, 2, {d}] residues, each q - 1", 20,
+             lambda: ntt._transform(q_max, True), lambda: ntt._transform_plain(q_max, True),
+             bound(2 * 8 * q_max.numel(), q_max.numel() // 2 * (d.bit_length() - 1) * BUTTERFLY_OPS)),
+            (f"the wrap: product of two {d}-entry operands, each p - 1, n = {n16}", 20,
+             lambda: ntt._poly_mul_cyclic(p_max, p_max.clone(), n16),
+             lambda: ntt._poly_mul_plain(ntt._fit_len(p_max, n16), ntt._fit_len(p_max, n16)),
+             bound(*product_bound(d, d, n16))),
+            (f"a Newton level's product: t's {d // 2} reversed entries x s's {d // 4}, n = {n15}", 20,
+             lambda: ntt._poly_mul_cyclic(t_rev[: d // 2], s_quarter, n15),
+             lambda: ntt._poly_mul_plain(ntt._fit_len(t_rev[: d // 2], n15), ntt._fit_len(s_quarter, n15)),
+             bound(*product_bound(d // 2, d // 4, n15))),
+            (f"the release division h = (v^2 - 1) / t end to end: num [{num.numel()}], t [{d}]", 5,
+             lambda: div(True), lambda: div(False), division_bound(num.numel(), d)),
+            (f"the prover's v^2: v [{d}] squared, n = {n16}", 20,
+             lambda: ntt._poly_mul_cyclic(v, None, n16),
+             lambda: ntt._poly_mul_plain(ntt._fit_len(v, n16), None),
+             bound(*product_bound(d, d, n16, square=True)))],
+        "gated_rowsum_p": [
+            (f"a random_ssp tile: v [{tssp.TILE}, {d}], the t-gate", 10,
+             lambda: modp.gated_rowsum_mod_p(ssp.v[: tssp.TILE], mask[: tssp.TILE]),
+             lambda: modp.gated_rowsum_plain(ssp.v[: tssp.TILE], mask[: tssp.TILE]),
+             k7_bound(mask[: tssp.TILE], d)),
+            (f"the largest sum: [{tssp.TILE}, {d}], every gate 1 and every entry p - 1", 10,
+             lambda: modp.gated_rowsum_mod_p(all_max, ones),
+             lambda: modp.gated_rowsum_plain(all_max, ones), k7_bound(ones, d)),
+            (f"the prover's w: v[1:] [{m - 1}, {d}], the witness", 5,
+             lambda: modp.gated_rowsum_mod_p(ssp.v[1:], wits[: m - 1]),
+             lambda: modp.gated_rowsum_plain(ssp.v[1:], wits[: m - 1]),
+             k7_bound(wits[: m - 1], d))],
+    }
 
 
 def phase_kernels(results: dict) -> None:
@@ -392,6 +536,7 @@ def phase_kernels(results: dict) -> None:
              lambda: aes.keystream_blocks_v1_plain(crs_key.aes, 0, tile_blocks),
              bound(16 * tile_blocks, BITSLICED_OPS * tile_blocks))],
     }
+    cases.update(poly_cases(P, ent_key))
     for name, shapes in cases.items():
         for shape, reps, kern, plain, bnd in shapes:
             want, plain_ms = timed(plain)
@@ -499,7 +644,9 @@ def phase_profile(label: str) -> None:
     """What the device does during random_ssp at release parameters, by
     kernel, and the device-side durations of K1 at three sizes and of K5 at
     the main path's two (a CUDA-event time of back-to-back short launches
-    also holds the host's time to launch them).  A reading, not a check: a
+    also holds the host's time to launch them); then one release prover:
+    its wall, device-busy share and copies, and the launches of its
+    polynomial stage by kernel name.  A reading, not a check: a
     profiler that traces no device activity is reported as such."""
     from c_lwe_snarks_tpu_torch.models import ssp as tssp
     from c_lwe_snarks_tpu_torch.ops import aes, sampling
@@ -528,6 +675,12 @@ def phase_profile(label: str) -> None:
             profiled_line(f"{tag} at {nblocks} blocks", kernel, counter, lambda: [
                 aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version)
                 for _ in range(reps)], reps, label)
+    # the release prover after a warm call, and what its polynomial stage
+    # launches by kernel name (tools/profile_prover.py)
+    sys.path.insert(0, str(ROOT / "tools"))
+    import profile_prover
+
+    profile_prover.run(label)
 
 
 def digests(run, P) -> dict:

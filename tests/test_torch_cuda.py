@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1..K5) against their plain torch versions, and
+"""The port's CUDA kernels (K1..K7) against their plain torch versions, and
 the protocol on the GPU (one-pass and stage-wise) against the committed
 golden digests.
 
@@ -19,7 +19,7 @@ import torch
 from c_lwe_snarks_tpu_torch.__main__ import run_protocol
 from c_lwe_snarks_tpu_torch.models import snark as tsnark
 from c_lwe_snarks_tpu_torch.models import ssp as tssp
-from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, sampling
+from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, modp, ntt, sampling
 from c_lwe_snarks_tpu_torch.utils import obs, serial
 from c_lwe_snarks_tpu_torch.utils.params import Params
 
@@ -251,3 +251,109 @@ def test_stagewise_prover_equals_onepass(cuda):
     assert bool(tsnark.verifier(vrs, run.ssp, pi, P))
     assert all(bool(v) for v in obs.probe_crs_range(crs, vrs, P).values())
     assert bool(obs.probe_proof(serial.proof_from_bytes(serial.proof_to_bytes(pi, P), P), vrs, P)["pke_h"])
+
+
+PM1 = (1 << 32) - 6  # p - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("la,lb,n", [
+    (1, 1, 2), (3, 2, 4), (300, 129, 512), (2049, 2048, 4096), (4000, 4193, 8192),
+    (2, 16384, 32768), (32768, 32768, 65536)])
+def test_k6_ntt_product(cuda, la, lb, n):
+    """K6's product and square against the plain version: one pass a
+    transform up to ntt.SMEM_N, two above; entries of p - 1 (the 32-bit
+    wrap of the residue adds mod q3)."""
+    rng = np.random.default_rng(n + la)
+    a = torch.from_numpy(rng.integers(0, PM1 + 1, size=la, dtype=np.int64)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, PM1 + 1, size=lb, dtype=np.int64)).to(cuda)
+    a[-1] = PM1
+    b[: lb // 2] = PM1
+    pad = lambda x: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    before = ntt.LAUNCHES["ntt"]
+    got, sq = ntt._poly_mul_cyclic(a, b, n), ntt._poly_mul_cyclic(a, None, n)
+    assert ntt.LAUNCHES["ntt"] - before == 2 * (2 if n <= ntt.SMEM_N else 4)
+    _eq(got, ntt._poly_mul_plain(pad(a), pad(b)))
+    _eq(sq, ntt._poly_mul_plain(pad(a), None))
+
+
+@pytest.mark.gpu
+def test_k6_transforms_and_batches(cuda):
+    """The raw transforms (the public ntt_forward / ntt_inverse and the
+    4-step's local ones) and a batched, broadcast product against the CPU."""
+    rng = np.random.default_rng(6)
+    for n in (2, 256, 2 * ntt.SMEM_N):
+        x = np.stack([rng.integers(0, q, size=(2, n), dtype=np.int64) for q in ntt.NTT_PRIMES])
+        x[:, :, -1] = np.array(ntt.NTT_PRIMES).reshape(3, 1) - 1
+        xt = torch.from_numpy(x)
+        for inverse in (False, True):
+            _eq(ntt._transform(xt.to(cuda), inverse), ntt._transform(xt, inverse))
+        for i, q in enumerate(ntt.NTT_PRIMES):
+            _eq(ntt.ntt_forward(xt[i].to(cuda), q), ntt.ntt_forward(xt[i], q))
+            _eq(ntt.ntt_inverse(xt[i].to(cuda), q), ntt.ntt_inverse(xt[i], q))
+    a = torch.from_numpy(rng.integers(0, PM1 + 1, size=(3, 64, 100), dtype=np.int64))
+    b = torch.from_numpy(rng.integers(0, PM1 + 1, size=(1, 64, 156), dtype=np.int64))
+    _eq(ntt.poly_mul_mod_p(a.to(cuda), b.to(cuda)), ntt.poly_mul_mod_p(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,gate_kind", [
+    (1, 1, "ones_max"), (300, 37, "random"), (513, 300, "ones_max"), (257, 256, "zero"),
+    (1024, 1 << 15, "random"), (21844, 1 << 10, "random")])
+def test_k7_gated_rowsum(cuda, rows, d, gate_kind):
+    """K7 against the plain version: ragged chunks and column groups, the
+    largest sum (every gate 1, every entry p - 1), a zero gate, a
+    random_ssp tile and the prover's row count."""
+    rng = np.random.default_rng(rows + d)
+    if gate_kind == "ones_max":
+        v = torch.full((rows, d), PM1, dtype=torch.int64, device=cuda)
+    else:
+        v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.int64)).to(cuda)
+    gate = {"ones_max": np.ones(rows, np.uint8), "zero": np.zeros(rows, np.uint8),
+            "random": rng.integers(0, 2, size=rows, dtype=np.uint8)}[gate_kind]
+    gate = torch.from_numpy(gate).to(cuda)
+    before = modp.LAUNCHES["gated_rowsum_p"]
+    got = modp.gated_rowsum_mod_p(v, gate)
+    assert modp.LAUNCHES["gated_rowsum_p"] == before + 1
+    _eq(got, modp.gated_rowsum_plain(v, gate))
+    _eq(modp.gated_rowsum_mod_p(v, gate.bool()), got)
+
+
+@pytest.mark.gpu
+def test_k7_refuses_a_v_it_cannot_read(cuda):
+    """No quiet copy: a strided or wrongly typed v raises."""
+    v = torch.zeros(8, 16, dtype=torch.int64, device=cuda)
+    gate = torch.ones(8, dtype=torch.uint8, device=cuda)
+    for bad in (v[:, ::2], v.T[:8, :8], v.int()):
+        with pytest.raises(ValueError, match="v:"):
+            modp.gated_rowsum_mod_p(bad, gate[: bad.shape[0]])
+
+
+@pytest.mark.gpu
+def test_k6_k7_prover_polys_without_host_sync(cuda):
+    """Once t's degree and leading coefficient are read, the row-sum (K7),
+    v^2 and the division (K6) run with no device-to-host sync; the result
+    equals prover_polys and the plain path on the CPU."""
+    P = Params(d=1 << 12, m=64, n=32)
+    key = sampling.PRGKey(SEED, cuda)
+    wits, ssp = tssp.random_ssp(key, 0, P)
+    want = tsnark.prover_polys(key, 4096, ssp, wits, P)  # warm: the library and the tables
+    cpu_ssp = tssp.SSP(t=ssp.t.cpu(), v=ssp.v.cpu())
+    plain = tsnark.prover_polys(sampling.PRGKey(SEED, "cpu"), 4096, cpu_ssp, wits.cpu(), P)
+    for g, w in zip(want, plain):
+        _eq(g, w)
+    degree, lead = ntt.poly_degree_and_lead(ssp.t)
+    delta = want[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w = modp.addmod_p(modp.mulmod_p(delta, ssp.t),
+                          modp.gated_rowsum_mod_p(ssp.v[1:], wits[: P.m - 1]))
+        v = modp.addmod_p(ssp.v[0], w)
+        num = ntt.poly_mul_mod_p(v, v)
+        num[0] = modp.submod_p(num[0], 1)
+        h = ntt.poly_div_exact_mod_p(num, ssp.t, P.d, den_degree=degree, den_lead=lead)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, x in zip((w, v, h), want[1:]):
+        _eq(g, x)

@@ -132,6 +132,19 @@ def test_transpose32_vs_jax(trailing):
     np.testing.assert_array_equal(again.numpy(), a.astype(np.int64))
 
 
+@pytest.mark.parametrize("trailing", [(), (4,)])
+def test_bytes_to_planes_vs_jax(trailing):
+    """The public names around the transpose: words -> planes and back."""
+    rng = np.random.default_rng(7 + len(trailing))
+    a = rng.integers(0, 1 << 32, size=(32,) + trailing, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(jax.jit(jbitslice.bytes_to_planes)(jnp.asarray(a)))
+    planes = tbitslice.bytes_to_planes(torch.from_numpy(a.astype(np.int64)))
+    np.testing.assert_array_equal(planes.numpy(), want.astype(np.int64))
+    back = np.asarray(jax.jit(jbitslice.planes_to_bytes)(jnp.asarray(want)))
+    np.testing.assert_array_equal(tbitslice.planes_to_bytes(planes).numpy(), back.astype(np.int64))
+    np.testing.assert_array_equal(back, a)
+
+
 def test_sbox_bits_bp_vs_jax():
     assert tsbox.GATE_COUNT == jsbox.GATE_COUNT == 115
     assert tsbox.check()

@@ -205,3 +205,8 @@ def test_ints_to_digit_matrix():
     xs = [0, 1, (1 << 704) - 1, 12345678901234567890]
     np.testing.assert_array_equal(td.ints_to_digit_matrix(xs), jd.ints_to_digit_matrix(xs))
     assert [td.digits_to_int(r) for r in td.ints_to_digit_matrix(xs)] == xs
+
+
+def test_digit_widths_match_jax():
+    """DIGITS (mod-2^704 width) and FULL_DIGITS (PRG bytes a value)."""
+    assert (td.DIGITS, td.FULL_DIGITS) == (jd.DIGITS, jd.FULL_DIGITS) == (88, 92)
