@@ -7,10 +7,13 @@ product of degree-< 2^15 polynomials with entries < p are < 2^79 <
 q1 * q2 * q3).  Only results mod p are part of the contract.
 
 On a CUDA tensor every transform is K6 (``csrc/ntt.cu``): a product is
-two launches for n <= ``SMEM_N`` and four above, over all three primes
-and the batch, with the pointwise product, the n^-1 scale and the CRT
-inside the inverse; its tables are built once per (n, device).
-``LAUNCHES`` counts its launches.  On the CPU the plain version runs:
+two launches for n <= ``SMEM_N`` and three above (a four-step whose row
+pass is fused), over all three primes and the batch, with the pointwise
+product, the n^-1 scale and the CRT inside the inverse; a series
+inverse runs its Newton levels of n <= ``NEWTON_N`` in one launch (a
+cluster of three CTAs a row) and each level above as two three-launch
+products issued by one host call; tables are built once per (n, device).
+``LAUNCHES`` counts kernel launches.  On the CPU the plain version runs:
 radix-2 stages in int64 (a product of two residues is < 2^62.2, so
 butterflies use plain ``%``), the three primes as a leading tensor axis.
 
@@ -31,6 +34,8 @@ from . import _build, modp
 
 NTT_PRIMES = (2013265921, 1811939329, 2281701377)  # 15*2^27+1, 27*2^26+1, 17*2^27+1
 SMEM_N = 4096  # residues of one prime a K6 pass holds (csrc/ntt.cu: kSmemN); above, four-step
+NEWTON_N = 4096  # the Newton launch takes every level of product length n <= NEWTON_N
+NEWTON_MAX_N = 16384  # the longest n a Newton CTA holds (csrc/ntt.cu: kNewtonMaxN)
 
 LAUNCHES = {"ntt": 0}
 
@@ -148,24 +153,36 @@ def _fit_len(q: torch.Tensor, out_len: int) -> torch.Tensor:
     return torch.nn.functional.pad(q, (0, out_len - q.shape[-1]))
 
 
+def _plain(x: torch.Tensor) -> bool:
+    """True on the CPU, where K6's wrappers run their plain versions; a CUDA
+    tensor goes through the kernels, any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    _require_cuda(x)
+    return False
+
+
 def _poly_mul_cyclic(a: torch.Tensor, b: torch.Tensor | None, n: int | None = None) -> torch.Tensor:
     """Cyclic product mod p at length n (default a's) of arrays of at most n
     entries, zero-padded to n (b None: square).  K6 on a CUDA tensor, two
-    or four launches (``_k6_product``); the plain version on the CPU."""
+    or three launches (``_k6_product``); the plain version on the CPU."""
     n = a.shape[-1] if n is None else n
-    if a.device.type == "cpu":
+    if _plain(a):
         return _poly_mul_plain(_fit_len(a, n), None if b is None else _fit_len(b, n))
-    _require_cuda(a)
     return _k6_product(a, b, n)
 
 
 # --------------------------------------------------------------------------
-# K6 (csrc/ntt.cu): one launch is one pass over all primes and the batch.
+# K6 (csrc/ntt.cu): cls_ntt_pass is one pass over all primes and the batch,
+# cls_ntt_rows the four-step's fused row pass of a product, cls_ntt_newton
+# the low Newton levels of a series inverse in one launch.
 # --------------------------------------------------------------------------
 
 # pass flags, as csrc/ntt.cu names them
 _IN_INT64, _IN_PRODUCT, _INVERSE, _TWIDDLE = 1, 2, 4, 8
-_SCALE, _SCALE_MONT, _OUT_INT64, _OUT_CRT = 16, 32, 64, 128
+_SCALE, _SCALE_MONT, _OUT_INT64, _OUT_CRT, _TWO_MINUS = 16, 32, 64, 128, 256
+# row-pass flags
+_ROW_SQUARE, _ROW_STORE_B, _ROW_BHAT = 1, 2, 4
 
 
 def _require_cuda(x: torch.Tensor) -> None:
@@ -173,11 +190,25 @@ def _require_cuda(x: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
+def _stage_table_np(n: int, q: int) -> np.ndarray:
+    """uint64 [n]: entry h + j = w_2h^j * 2^32 mod q for each stage half h < n
+    (a power of two) and j < h (entry 0 unused, 0), w_2h the plain version's
+    root; a butterfly multiplies by it in Montgomery form."""
+    out = np.zeros(n, np.uint64)
+    h = 1
+    while h < n:
+        w = pow(_generator(q), (q - 1) // (2 * h), q)
+        out[h : 2 * h] = _powers_np(w, h, q) * np.uint64(1 << 16) % np.uint64(q) * np.uint64(1 << 16) % np.uint64(q)
+        h *= 2
+    return out
+
+
 @functools.cache
 def _k6_table_np(n: int) -> np.ndarray:
-    """uint32 [3, 2n + 4] per prime: w^e and Shoup's floor(w^e * 2^32 / q)
+    """uint32 [3, 3n + 4] per prime: w^e and Shoup's floor(w^e * 2^32 / q)
     for e < n (w a primitive n-th root of unity, the plain version's roots),
-    then n^-1, n^-1 * 2^32 mod q and their Shoup companions."""
+    the stage table (``_stage_table_np``), then n^-1, n^-1 * 2^32 mod q and
+    their Shoup companions."""
     rows = []
     for q in NTT_PRIMES:
         w = pow(_generator(q), (q - 1) // n, q)
@@ -185,7 +216,8 @@ def _k6_table_np(n: int) -> np.ndarray:
         n_inv = pow(n, q - 2, q)
         scale = np.array([n_inv, n_inv * (1 << 32) % q], np.uint64)
         shoup = lambda x: (x << np.uint64(32)) // np.uint64(q)
-        rows.append(np.concatenate([pw, shoup(pw), np.stack([scale, shoup(scale)], 1).reshape(-1)]))
+        rows.append(np.concatenate([pw, shoup(pw), _stage_table_np(n, q),
+                                    np.stack([scale, shoup(scale)], 1).reshape(-1)]))
     return np.stack(rows).astype(np.uint32)
 
 
@@ -196,14 +228,28 @@ def _k6_table(n: int, device) -> torch.Tensor:
 
 
 def _k6_pass(inp, in2, out, table, *, rows, n, L, cols_pass, flags, rows_a=None, len_a=None,
-             len_b=None, in_pstride=0, out_pstride=0, p0=0, np_=3) -> None:
-    """One K6 launch: rows x (n / L) transforms of length L, as the columns
-    (stride n / L) or the rows (stride 1) of each row's [n / L, L] view."""
+             len_b=None, lda=None, ldb=None, in_pstride=0, out_pstride=0, out_len=None, p0=0,
+             np_=3) -> None:
+    """One ``cls_ntt_pass`` launch: rows x (n / L) transforms of length L, as
+    the columns (stride n / L) or the rows (stride 1) of each row's
+    [n / L, L] view.  int64 inputs: rows_a rows of len_a entries at stride
+    lda, then rows of len_b at ldb; a CRT store writes out_len entries a row."""
     istride, tstride = (n // L, 1) if cols_pass else (1, L)
+    len_a = n if len_a is None else len_a
+    len_b = n if len_b is None else len_b
     _build.launch(
-        "cls_ntt_pass", inp, in2, out, table, rows, rows if rows_a is None else rows_a,
-        n if len_a is None else len_a, n if len_b is None else len_b, in_pstride, out_pstride,
-        n, L, istride, tstride, flags, p0, np_)
+        "cls_ntt_pass", inp, in2, out, table, rows, rows if rows_a is None else rows_a, len_a,
+        len_b, len_a if lda is None else lda, len_b if ldb is None else ldb, in_pstride,
+        out_pstride, n, L, istride, tstride, n if out_len is None else out_len, flags, p0, np_)
+    LAUNCHES["ntt"] += 1
+
+
+def _k6_rows(x, bhat, table, *, rows, n, flags, x_pstride, b_off=0, h_pstride=0) -> None:
+    """One ``cls_ntt_rows`` launch: the row pass of rows products at length
+    n, in place on the first operand's rows of x (the second's at b_off
+    rows further, or bhat's already transformed ones)."""
+    _build.launch("cls_ntt_rows", x, bhat, table, rows, b_off, x_pstride, h_pstride, n,
+                  _split4(n)[0], flags)
     LAUNCHES["ntt"] += 1
 
 
@@ -211,14 +257,24 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
-def _k6_product(a: torch.Tensor, b: torch.Tensor | None, n: int) -> torch.Tensor:
+def _scratch(ws: torch.Tensor | None, numel: int, device) -> torch.Tensor:
+    """numel int32 words: the front of the caller's workspace, else new."""
+    if ws is not None and ws.numel() >= numel:
+        return ws[:numel]
+    return torch.empty(numel, dtype=torch.int32, device=device)
+
+
+def _k6_product(a: torch.Tensor, b: torch.Tensor | None, n: int,
+                ws: torch.Tensor | None = None) -> torch.Tensor:
     """int64 [..., n]: the cyclic product mod p of a and b (or a^2).
 
-    Forward of both operands in one pass (their rows one batch, read as
-    int64 and zero-extended to n), then the inverse with the Montgomery
-    pointwise product at its load and the scale and CRT at its store; for
-    n > SMEM_N each transform is a four-step of two passes, in place in
-    one uint32 scratch [3, rows, n]."""
+    Up to SMEM_N: forward of both operands in one pass (their rows one
+    batch, read as int64 and zero-extended to n), then the inverse with the
+    Montgomery pointwise product at its load and the scale and CRT at its
+    store.  Above: the four-step's forward column pass, the fused row pass
+    (forward rows, product, inverse rows) and the inverse column pass with
+    the scale and the CRT.  Residues live in one uint32 scratch [3, rows,
+    n], taken from ``ws`` when it is large enough."""
     if b is not None and a.shape[:-1] != b.shape[:-1]:
         lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
         a, b = a.expand(*lead, a.shape[-1]), b.expand(*lead, b.shape[-1])
@@ -228,26 +284,23 @@ def _k6_product(a: torch.Tensor, b: torch.Tensor | None, n: int) -> torch.Tensor
     nb = a2.shape[0]
     rows = nb if b is None else 2 * nb
     table = _k6_table(n, a.device)
-    scratch = torch.empty(3, rows, n, dtype=torch.int32, device=a.device)
-    flat = scratch.view(-1)
-    fb = flat if b is None else flat[nb * n :]  # the second factor's rows, or the first's again
+    flat = _scratch(ws, 3 * rows * n, a.device)
+    scratch = flat.view(3, rows, n)
     out = torch.empty(nb, n, dtype=torch.int64, device=a.device)
-    fwd = dict(rows=rows, rows_a=nb, len_a=a2.shape[-1], len_b=b2.shape[-1],
-               out_pstride=rows * n)
-    res = dict(in_pstride=rows * n, out_pstride=rows * n)
+    fwd = dict(rows=rows, rows_a=nb, len_a=a2.shape[-1], len_b=b2.shape[-1], out_pstride=rows * n)
+    res = dict(rows=nb, n=n, in_pstride=rows * n)
     if n <= SMEM_N:
+        fb = flat if b is None else flat[nb * n :]  # the second factor's rows, or the first's again
         _k6_pass(a2, b2, scratch, table, n=n, L=n, cols_pass=False, flags=_IN_INT64, **fwd)
-        _k6_pass(scratch, fb, out, table, rows=nb, n=n, L=n, cols_pass=False,
+        _k6_pass(scratch, fb, out, table, L=n, cols_pass=False,
                  flags=_IN_PRODUCT | _INVERSE | _SCALE_MONT | _OUT_CRT, **res)
     else:
-        n1, n2 = _split4(n)
+        n1, _ = _split4(n)
         _k6_pass(a2, b2, scratch, table, n=n, L=n1, cols_pass=True, flags=_IN_INT64 | _TWIDDLE,
                  **fwd)
-        _k6_pass(scratch, scratch, scratch, table, rows=rows, n=n, L=n2, cols_pass=False,
-                 flags=0, **res)
-        _k6_pass(scratch, fb, scratch, table, rows=nb, n=n, L=n2, cols_pass=False,
-                 flags=_IN_PRODUCT | _INVERSE | _TWIDDLE, **res)
-        _k6_pass(scratch, scratch, out, table, rows=nb, n=n, L=n1, cols_pass=True,
+        _k6_rows(scratch, scratch, table, rows=nb, n=n, b_off=nb, x_pstride=rows * n,
+                 flags=_ROW_SQUARE if b is None else 0)
+        _k6_pass(scratch, scratch, out, table, L=n1, cols_pass=True,
                  flags=_INVERSE | _SCALE_MONT | _OUT_CRT, **res)
     return out.reshape(*lead, n)
 
@@ -283,10 +336,9 @@ def _transform(x: torch.Tensor, inverse: bool, p0: int = 0) -> torch.Tensor:
     """Residues [np, ..., n] of primes p0.. -> their NTTs in natural order
     (inverse: scaled by n^-1): K6 on a CUDA tensor, the plain version on
     the CPU."""
-    if x.device.type != "cpu":
-        _require_cuda(x)
-        return _k6_transform(x, inverse, p0)
-    return _transform_plain(x, inverse, p0)
+    if _plain(x):
+        return _transform_plain(x, inverse, p0)
+    return _k6_transform(x, inverse, p0)
 
 
 def _transform_plain(x: torch.Tensor, inverse: bool, p0: int = 0) -> torch.Tensor:
@@ -455,26 +507,141 @@ def poly_mul_mod_p(
     return out
 
 
+def _inv_levels(out_len: int) -> list[tuple[int, int]]:
+    """(k, n) of each Newton level of a series inverse mod x^out_len: s mod
+    x^k -> s mod x^2k by two products at length n = 4k (2 at k = 1), which
+    holds either product whole (at most 3k - 1 coefficients)."""
+    levels, k = [], 1
+    while k < out_len:
+        levels.append((k, 2 if k == 1 else 4 * k))
+        k *= 2
+    return levels
+
+
+def _newton_split(levels, t: torch.Tensor, mesh, min_shard_n: int, newton_n: int) -> int:
+    """How many of the levels the Newton launch takes: the leading ones of
+    n <= newton_n that do not run on a mesh's 4-step."""
+    low = 0
+    while (low < len(levels) and levels[low][1] <= newton_n
+           and not _shardable(levels[low][1], t, t, mesh, min_shard_n)):
+        low += 1
+    return low
+
+
+@functools.cache
+def _newton_table_np(N: int) -> np.ndarray:
+    """uint32 [3, N + 2 (log2 N + 1)] per prime: the stage table of N
+    (``_stage_table_np``: every level's transform reads its first n
+    entries), then for log2 n = 0 .. log2 N: n^-1 * 2^32 mod q and its
+    Shoup companion."""
+    rows = []
+    for q in NTT_PRIMES:
+        shoup = lambda x: (x << np.uint64(32)) // np.uint64(q)
+        scales = np.array([pow(1 << lg, q - 2, q) * (1 << 32) % q
+                           for lg in range(N.bit_length())], np.uint64)
+        rows.append(np.concatenate([_stage_table_np(N, q), np.stack([scales, shoup(scales)], 1).reshape(-1)]))
+    return np.stack(rows).astype(np.uint32)
+
+
+@functools.cache
+def _newton_table(N: int, device) -> torch.Tensor:
+    return _upload(_newton_table_np(N).view(np.int32), device)
+
+
+def _k6_newton(t2: torch.Tensor, s0: torch.Tensor | None, seed: int | None,
+               levels: int, N: int) -> torch.Tensor:
+    """K6's Newton launch: int64 [rows, 2^levels], the inverse series of each
+    row of t2 (int64 [rows, lt], contiguous) after ``levels`` Newton levels
+    from t2[:, 0]^-1 (s0 [rows, 1] on the device, or the host int seed), one
+    cluster of three CTAs a row; every level's n at most N, N >= 4."""
+    rows, lt = t2.shape
+    out = torch.empty(rows, 1 << levels, dtype=torch.int64, device=t2.device)
+    _build.launch("cls_ntt_newton", t2, out if s0 is None else s0.contiguous(), out,
+                  _newton_table(N, t2.device), rows, lt, lt, levels, N,
+                  0 if seed is None else seed, int(s0 is not None))
+    LAUNCHES["ntt"] += 1
+    return out
+
+
+def _two_minus(ts: torch.Tensor) -> torch.Tensor:
+    """2 - ts mod p: the 2 added in place (no host scalar copied)."""
+    out = modp.submod_p(0, ts)
+    out[..., 0].add_(2).remainder_(modp.P)
+    return out
+
+
+def _newton_plain(t2: torch.Tensor, s: torch.Tensor, levels) -> torch.Tensor:
+    """The Newton launch's plain version: the same levels, each two products
+    by ``_poly_mul_plain`` at the level's n."""
+    for k, n in levels:
+        k2 = 2 * k
+        ts = _poly_mul_plain(_fit_len(t2[..., :k2], n), _fit_len(s, n))[..., :k2]
+        s = _poly_mul_plain(_fit_len(s, n), _fit_len(_two_minus(ts), n))[..., :k2]
+    return s
+
+
+@functools.cache
+def _k6_tables(ns: tuple, device) -> torch.Tensor:
+    """The pass tables of the lengths ns, one after another, uploaded once."""
+    return _upload(np.concatenate([_k6_table_np(n).reshape(-1) for n in ns]).view(np.int32), device)
+
+
+def _k6_levels(t2: torch.Tensor, s: torch.Tensor, levels, ws: torch.Tensor) -> torch.Tensor:
+    """Newton levels above the Newton launch (n = 4k > SMEM_N, k doubling),
+    issued by one ``cls_ntt_levels`` call: each level two three-launch
+    products, ts = t s stored as 2 - ts by the CRT, then s (2 - ts) reusing
+    s's forward rows (``_ROW_STORE_B``, ``_ROW_BHAT``), so its column pass
+    transforms 2 - ts alone.  ws: int32, at least 11 rows n_max words."""
+    rows, lt = t2.shape
+    (k0, _), (k_top, n_top) = levels[0], levels[-1]
+    assert 4 * k0 > SMEM_N and k_top == k0 << (len(levels) - 1) and ws.numel() >= 11 * rows * n_top
+    out = torch.empty(rows, 2 * k_top, dtype=torch.int64, device=t2.device)
+    tables = _k6_tables(tuple(n for _, n in levels), t2.device)
+    _build.launch("cls_ntt_levels", t2, s.contiguous(), out, ws, tables, rows, lt, k0, len(levels))
+    LAUNCHES["ntt"] += 6 * len(levels)
+    return out
+
+
+def _split_mesh(mesh) -> bool:
+    return mesh is not None and mesh.size() > 1
+
+
 def poly_inv_series_mod_p(
     t: torch.Tensor, out_len: int, *, seed: int | None = None, mesh=None,
-    min_shard_n: int = 4096,
+    min_shard_n: int = 4096, ws: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Power-series inverse of t mod x^out_len (t[0] invertible), Newton;
     ``seed``, if given, is t[0]^-1 mod p, known on the host; with ``mesh``
-    the large levels run on the 4-step transform."""
-    if seed is None:
-        s = modp.invmod_p(t[..., :1])
+    the large levels run on the 4-step transform.
+
+    On a CUDA tensor the levels of product length n <= NEWTON_N that no
+    mesh shards are one K6 launch (``_k6_newton``); above,
+    each level is two three-launch K6 products (``_k6_levels``) in the
+    workspace ``ws`` (int32, allocated here if missing or short).  On the
+    CPU the same levels run by ``_newton_plain`` and ``poly_mul_mod_p``."""
+    assert SMEM_N <= NEWTON_N <= NEWTON_MAX_N, NEWTON_N
+    levels = _inv_levels(out_len)
+    lead = t.shape[:-1]
+    t2 = _rows(t)
+    rows = t2.shape[0]
+    s0 = modp.invmod_p(t2[:, :1]) if seed is None else None
+    low = _newton_split(levels, t, mesh, min_shard_n, NEWTON_N)
+    plain = _plain(t)
+    if low and not plain:
+        s = _k6_newton(t2, s0, seed, low, max(levels[low - 1][1], 4))
     else:
-        s = torch.full(t.shape[:-1] + (1,), seed, dtype=torch.int64, device=t.device)
-    k = 1
-    while k < out_len:
-        k2 = min(2 * k, _next_pow2(out_len))
-        ts = poly_mul_mod_p(t[..., :k2], s, out_len=k2, mesh=mesh, min_shard_n=min_shard_n)
-        two_minus = modp.submod_p(0, ts)  # 2 - ts: the 2 added in place (no host scalar copied)
-        two_minus[..., 0].add_(2).remainder_(modp.P)
-        s = poly_mul_mod_p(s, two_minus, out_len=k2, mesh=mesh, min_shard_n=min_shard_n)
-        k = k2
-    return s[..., :out_len]
+        s = torch.full((rows, 1), seed, dtype=torch.int64, device=t.device) if s0 is None else s0
+        if plain:
+            s = _newton_plain(t2, s, levels[:low])
+    rest = levels[low:]
+    if rest and (plain or _split_mesh(mesh)):
+        s = s.reshape(*lead, -1)
+        for k, _ in rest:
+            ts = poly_mul_mod_p(t[..., : 2 * k], s, out_len=2 * k, mesh=mesh, min_shard_n=min_shard_n)
+            s = poly_mul_mod_p(s, _two_minus(ts), out_len=2 * k, mesh=mesh, min_shard_n=min_shard_n)
+    elif rest:
+        s = _k6_levels(t2, s, rest, _scratch(ws, 11 * rows * rest[-1][1], t.device))
+    return s[..., :out_len].reshape(*lead, -1)
 
 
 def poly_true_degree(x: torch.Tensor) -> int:
@@ -495,12 +662,19 @@ def _div_rev_core(
     seed: int | None = None,
 ) -> torch.Tensor:
     """Reversed-series exact division; den's last formal entry nonzero
-    (its inverse mod p is ``seed``, if given)."""
-    inv = poly_inv_series_mod_p(torch.flip(den, (-1,)), ql, seed=seed, mesh=mesh,
-                                min_shard_n=min_shard_n)
-    qr = poly_mul_mod_p(torch.flip(num, (-1,))[..., :ql], inv, out_len=ql, mesh=mesh,
-                        min_shard_n=min_shard_n)
-    return torch.flip(qr, (-1,))
+    (its inverse mod p is ``seed``, if given).  On a CUDA tensor without a
+    mesh the series' levels and the quotient's product share one K6
+    workspace."""
+    nr, dr = torch.flip(num, (-1,))[..., :ql], torch.flip(den, (-1,))
+    if _plain(num) or _split_mesh(mesh):
+        inv = poly_inv_series_mod_p(dr, ql, seed=seed, mesh=mesh, min_shard_n=min_shard_n)
+        qr = poly_mul_mod_p(nr, inv, out_len=ql, mesh=mesh, min_shard_n=min_shard_n)
+        return torch.flip(qr, (-1,))
+    n = _next_pow2(max(2 * ql - 1, 2))
+    above = [ln for _, ln in _inv_levels(ql) if ln > NEWTON_N]
+    ws = torch.empty(max([6 * n] + [11 * ln for ln in above]), dtype=torch.int32, device=num.device)
+    inv = poly_inv_series_mod_p(dr, ql, seed=seed, ws=ws)
+    return torch.flip(_k6_product(nr, inv, n, ws)[..., :ql], (-1,))
 
 
 def poly_div_exact_mod_p(

@@ -216,10 +216,36 @@ def product_bound(la: int, lb: int, n: int, rows: int = 1, square: bool = False)
     return 8 * rows * (la + (0 if square else lb) + n), ops
 
 
+def transform_ops(n: int, transforms: int) -> int:
+    """Operations of `transforms` radix-2 transforms of length n, one prime each."""
+    return transforms * n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
+
+
+def newton_ops(levels) -> int:
+    """Operations of Newton levels as K6 runs them: at each level (n, k2 =
+    2k kept) five transforms a prime (s's forward once, t's, 2 - ts's, two
+    inverses), two pointwise products and scales, 2 k2 CRT outputs."""
+    return sum(transform_ops(n, 3 * 5) + 2 * (3 * n * POINTWISE_OPS + 2 * k * CRT_OPS)
+               for k, n in levels)
+
+
 def division_bound(ln: int, ld: int) -> dict:
     """The bound of poly_div_exact_mod_p(num [ln], den [ld]) with den's last
-    entry nonzero: the sum of its products' (the Newton levels' two a level,
-    then the quotient's), as ops/ntt.py issues them."""
+    entry nonzero, for the work the K6 design does: its Newton levels
+    (``newton_ops``) and the quotient's product (three transforms a prime,
+    ql outputs); bytes: num and den read once, the quotient written once."""
+    from c_lwe_snarks_tpu_torch.ops import ntt
+
+    ql = max(ln - ld + 1, 1)
+    n = 1 << (2 * ql - 2).bit_length()
+    ops = (newton_ops(ntt._inv_levels(ql)) + transform_ops(n, 3 * 3)
+           + 3 * n * POINTWISE_OPS + ql * CRT_OPS)
+    return bound(8 * (ln + ld + ql), ops)
+
+
+def division_bound_products(ln: int, ld: int) -> dict:
+    """The same division counted product by product: each Newton level's two
+    products whole (s's forward transform twice), then the quotient's."""
     ql = max(ln - ld + 1, 1)
     nbytes = ops = 0
     k = 1
@@ -233,23 +259,28 @@ def division_bound(ln: int, ld: int) -> dict:
     return bound(nbytes + b, ops + o)
 
 
-@contextlib.contextmanager
-def plain_products():
-    """Every product of the polynomial engine by the plain version, on
-    whatever device its operands are (the yardstick of K6's calls)."""
+def k6_division_launches(ql: int) -> int:
+    """K6 launches of a division with quotient length ql on the card: one
+    Newton launch, six a level above NEWTON_N, the quotient's product."""
     from c_lwe_snarks_tpu_torch.ops import ntt
 
-    k6 = ntt._poly_mul_cyclic
+    above = sum(n > ntt.NEWTON_N for _, n in ntt._inv_levels(ql))
+    n = 1 << (2 * ql - 2).bit_length()
+    return 1 + 6 * above + (2 if n <= ntt.SMEM_N else 3)
 
-    def plain(a, b, n=None):
-        n = a.shape[-1] if n is None else n
-        return ntt._poly_mul_plain(ntt._fit_len(a, n), None if b is None else ntt._fit_len(b, n))
 
-    ntt._poly_mul_cyclic = plain
+@contextlib.contextmanager
+def plain_k6():
+    """Every K6 wrapper by its plain version, on whatever device its
+    operands are (the yardstick of K6's calls)."""
+    from c_lwe_snarks_tpu_torch.ops import ntt
+
+    k6 = ntt._plain
+    ntt._plain = lambda x: True
     try:
         yield
     finally:
-        ntt._poly_mul_cyclic = k6
+        ntt._plain = k6
 
 
 def poly_cases(P, ent_key) -> dict:
@@ -287,12 +318,32 @@ def poly_cases(P, ent_key) -> dict:
         return bound(8 * gated * cols + gate.numel() + 8 * cols, 2 * gated * cols)
 
     def div(k6: bool):
-        def call():
+        with contextlib.nullcontext() if k6 else plain_k6():
             return ntt.poly_div_exact_mod_p(num, ssp.t, d, den_degree=degree, den_lead=lead)
-        if k6:
-            return call()
-        with plain_products():
-            return call()
+
+    # the Newton launch at the release levels: 2 k = 2,048 of t's reversed
+    # entries, levels n = 2 ... 4,096; one release level above it, n = 2^16
+    levels = ntt._inv_levels(ntt.NEWTON_N // 2)
+    t_top = t_rev[None, : ntt.NEWTON_N // 2].contiguous()
+    seed = pow(lead, modp.P - 2, modp.P)
+    seed_t = torch.full((1, 1), seed, dtype=torch.int64, device=DEVICE)
+    top = [ntt._inv_levels(d)[-1]]
+    s_top = torch.randint(0, modp.P, (1, d // 2), generator=gen, device=DEVICE)
+    ws = torch.empty(11 * top[0][1], dtype=torch.int32, device=DEVICE)
+    newton_case = [
+        (f"the Newton launch: {len(levels)} levels, n = 2 ... {levels[-1][1]}, of t's "
+         f"{t_top.shape[-1]} reversed entries", 20,
+         lambda: ntt._k6_newton(t_top, None, seed, len(levels), levels[-1][1]),
+         lambda: ntt._newton_plain(t_top, seed_t, levels),
+         bound(8 * 2 * t_top.shape[-1], newton_ops(levels))),
+        (f"a Newton level above it: k = {top[0][0]}, n = {top[0][1]} (two fused products)", 20,
+         lambda: ntt._k6_levels(t_rev[None], s_top, top, ws),
+         lambda: ntt._newton_plain(t_rev[None], s_top, top),
+         bound(8 * (2 * top[0][0] + top[0][0] + 2 * top[0][0]), newton_ops(top)))]
+    old = division_bound_products(num.numel(), d)
+    print(f"phase kernels: ntt [the release division] bound counted product by product (s's "
+          f"forward transform twice a level, bytes a product): {old['bound_ms']:.4f} ms by "
+          f"{old['bound_by']}")
 
     return {
         "ntt": [
@@ -310,6 +361,7 @@ def poly_cases(P, ent_key) -> dict:
              lambda: ntt._poly_mul_cyclic(t_rev[: d // 2], s_quarter, n15),
              lambda: ntt._poly_mul_plain(ntt._fit_len(t_rev[: d // 2], n15), ntt._fit_len(s_quarter, n15)),
              bound(*product_bound(d // 2, d // 4, n15))),
+            *newton_case,
             (f"the release division h = (v^2 - 1) / t end to end: num [{num.numel()}], t [{d}]", 5,
              lambda: div(True), lambda: div(False), division_bound(num.numel(), d)),
             (f"the prover's v^2: v [{d}] squared, n = {n16}", 20,
@@ -764,6 +816,8 @@ def phase_release(label: str):
     check(dec_s0 == 1 and dec_as0 == int(run.vrs.alpha), "release: CRS decrypt probe")
     for name in RELEASE_PATH:
         check(launches[name] > 0, f"release: kernel {name} was not launched on the main path")
+    k6_plan = k6_division_launches(P.d) + 3  # the division and v^2
+    check(launches["ntt"] == k6_plan, f"release: {launches['ntt']} K6 launches, planned {k6_plan}")
     # the spread of the stage walls: the same run five more times
     walls: dict = {}
     for _ in range(5):
@@ -1055,6 +1109,14 @@ def main() -> int:
     for line in _build.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    from c_lwe_snarks_tpu_torch.ops import ntt
+
+    # K6's dynamic shared memory (csrc/ntt.cu's launchers): the Newton CTA
+    # holds the stage table, S and X of N words, P of N / 2 and 192 words of
+    # scales; the CRT pass at n <= SMEM_N a transform and its stage table
+    # of each prime
+    print(f"phase build: K6 dynamic shared memory: Newton CTA {(7 * ntt.NEWTON_N // 2 + 192) * 4} B "
+          f"at N_c = {ntt.NEWTON_N}; one-pass CRT block {3 * 2 * ntt.SMEM_N * 4} B at n = {ntt.SMEM_N}")
 
     results: dict = {}
     phase_kernels(results)

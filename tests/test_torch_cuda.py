@@ -261,9 +261,10 @@ PM1 = (1 << 32) - 6  # p - 1
     (1, 1, 2), (3, 2, 4), (300, 129, 512), (2049, 2048, 4096), (4000, 4193, 8192),
     (2, 16384, 32768), (32768, 32768, 65536)])
 def test_k6_ntt_product(cuda, la, lb, n):
-    """K6's product and square against the plain version: one pass a
-    transform up to ntt.SMEM_N, two above; entries of p - 1 (the 32-bit
-    wrap of the residue adds mod q3)."""
+    """K6's product and square against the plain version: two launches up to
+    ntt.SMEM_N, three above (the four-step's column passes and the fused
+    row pass); entries of p - 1 (the 32-bit wrap of the residue adds mod
+    q3)."""
     rng = np.random.default_rng(n + la)
     a = torch.from_numpy(rng.integers(0, PM1 + 1, size=la, dtype=np.int64)).to(cuda)
     b = torch.from_numpy(rng.integers(0, PM1 + 1, size=lb, dtype=np.int64)).to(cuda)
@@ -272,7 +273,7 @@ def test_k6_ntt_product(cuda, la, lb, n):
     pad = lambda x: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
     before = ntt.LAUNCHES["ntt"]
     got, sq = ntt._poly_mul_cyclic(a, b, n), ntt._poly_mul_cyclic(a, None, n)
-    assert ntt.LAUNCHES["ntt"] - before == 2 * (2 if n <= ntt.SMEM_N else 4)
+    assert ntt.LAUNCHES["ntt"] - before == 2 * (2 if n <= ntt.SMEM_N else 3)
     _eq(got, ntt._poly_mul_plain(pad(a), pad(b)))
     _eq(sq, ntt._poly_mul_plain(pad(a), None))
 
@@ -294,6 +295,58 @@ def test_k6_transforms_and_batches(cuda):
     a = torch.from_numpy(rng.integers(0, PM1 + 1, size=(3, 64, 100), dtype=np.int64))
     b = torch.from_numpy(rng.integers(0, PM1 + 1, size=(1, 64, 156), dtype=np.int64))
     _eq(ntt.poly_mul_mod_p(a.to(cuda), b.to(cuda)), ntt.poly_mul_mod_p(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("newton_n", [4096, 8192, 16384])
+@pytest.mark.parametrize("shape,out_len", [
+    ((40,), 2), ((40,), 5), ((1100,), 1025), ((3, 300), 257), ((2100,), 2049), ((8200,), 8193)])
+def test_k6_newton_launch(cuda, monkeypatch, newton_n, shape, out_len):
+    """The series inverse on the card against the plain path on the CPU,
+    across the crossover N_c = newton_n: the levels of n <= N_c are one
+    launch, each level above six (two three-launch products); batched rows
+    are one cluster each; t's last entries and a row are p - 1."""
+    rng = np.random.default_rng(out_len + len(shape))
+    t = rng.integers(1, PM1 + 1, size=shape, dtype=np.int64)
+    t[..., -7:] = PM1
+    t.reshape(-1, shape[-1])[-1] = PM1
+    tt = torch.from_numpy(t)
+    monkeypatch.setattr(ntt, "NEWTON_N", newton_n)
+    levels = ntt._inv_levels(out_len)
+    above = sum(n > newton_n for _, n in levels)
+    for seed in (None, pow(PM1, PM1 - 1, PM1 + 1)) if len(shape) == 1 else (None,):
+        if seed is not None:
+            tt = tt.clone()
+            tt[0] = PM1
+        before = ntt.LAUNCHES["ntt"]
+        got = ntt.poly_inv_series_mod_p(tt.to(cuda), out_len, seed=seed)
+        assert ntt.LAUNCHES["ntt"] - before == 1 + 6 * above
+        _eq(got, ntt.poly_inv_series_mod_p(tt, out_len, seed=seed))
+        s0 = modp.invmod_p(tt.reshape(-1, shape[-1])[:, :1])
+        low = len(levels) - above
+        _eq(ntt._k6_newton(tt.reshape(-1, shape[-1]).to(cuda), s0.to(cuda), None, low,
+                           max(levels[low - 1][1], 4)),
+            ntt._newton_plain(tt.reshape(-1, shape[-1]), s0, levels[:low]))
+
+
+@pytest.mark.gpu
+def test_k6_newton_refuses_what_it_cannot_hold(cuda, monkeypatch):
+    """The rule is on shapes, in the wrapper: no N_c past the CTA's shared
+    memory, and more rows than a grid's y dimension raise instead of
+    falling back; levels above N_c take the product path."""
+    t = torch.ones(70000, 4, dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="cls_ntt_newton"):
+        ntt.poly_inv_series_mod_p(t, 4)
+    with monkeypatch.context() as m:
+        m.setattr(ntt, "NEWTON_N", 2 * ntt.NEWTON_MAX_N)
+        with pytest.raises(AssertionError):
+            ntt.poly_inv_series_mod_p(t[:2], 4)
+    before = ntt.LAUNCHES["ntt"]
+    got = ntt.poly_inv_series_mod_p(torch.ones(2, 4100, dtype=torch.int64, device=cuda), 4097)
+    assert ntt.LAUNCHES["ntt"] - before == 1 + 6 * 2
+    want = torch.zeros(2, 4097, dtype=torch.int64)
+    want[:, 0], want[:, 1] = 1, PM1  # 1 / (1 + x + x^2 + ...) = 1 - x
+    _eq(got, want)
 
 
 @pytest.mark.gpu

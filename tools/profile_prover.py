@@ -92,7 +92,7 @@ def run(label: str, file=sys.stdout) -> dict:
     prover = _summary(items, wall)
     items, wall = _trace(polys)
     stage = _summary(items, wall)
-    by_name = sorted(((name, us, c) for name, (us, c) in items.items()), key=lambda x: -x[2])
+    by_name = sorted(((name, us, c) for name, (us, c) in items.items()), key=lambda x: -x[1])
 
     def untraced(fn) -> list:
         walls = []
