@@ -12,8 +12,6 @@ keystream kernel (K1) and contracts it in torch; it gives the same bytes.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -73,18 +71,9 @@ def ct_import(
     return torch.cat([a, b92[:, None, :DIGITS]], dim=1)
 
 
-@functools.cache
-def _p_bytes(p: int, device) -> torch.Tensor:
-    """int64 [4]: p's little-endian bytes, on the device once."""
-    return torch.tensor([(p >> (8 * i)) & 255 for i in range(4)], device=device)
-
-
 def _b_rows(dot: torch.Tensor, msgs: torch.Tensor, errs: torch.Tensor, params: Params):
     """dot + p * e + m mod 2^704 as digit rows, dot given as int64 planes."""
-    pe_planes = errs.to(torch.int64)[None] * _p_bytes(params.p, errs.device).reshape(4, 1, 1)
-    pe = dg.combine_shift_planes(pe_planes)
-    m = u32_to_digits(msgs).to(torch.int64)
-    return dg.carry_fold(dot + pe + m)
+    return dg.carry_fold(dot + dg.pe_m_planes(msgs, errs))
 
 
 def encrypt_b(
@@ -141,8 +130,10 @@ def encrypt_section(
     if impl == "auto":
         impl = "fused" if eval_fused.fits_enc_bound(params.n) else "scan"
     if impl == "fused":
-        dot = eval_fused.encrypt_b_fused(key, section_offset, sk, total, params.n, params.ctr_ct)
-        return _b_rows(dot, msgs, errs, params)
+        # K4's nibble planes straight into K10's b-row form
+        v_lo, v_hi = eval_fused.encrypt_b_planes(
+            key, section_offset, sk, total, params.n, params.ctr_ct)
+        return dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs)
     if tile is None:
         tile = min(total, 256)
     if total <= 2 or tile % 2:
@@ -188,7 +179,7 @@ def smudge(
     ct: torch.Tensor, s_digits: torch.Tensor, sign_positive: torch.Tensor, params: Params
 ) -> torch.Tensor:
     """b += ±(uniform log_smudging bits) * p; only the b coordinate changes."""
-    sp = dg.scalar_mul_digits(s_digits, _p_bytes(params.p, ct.device))
+    sp = dg.scalar_mul_digits(s_digits, dg.p_bytes(ct.device))
     b = ct_b(ct)
     b_new = torch.where(sign_positive, dg.add_digits(b, sp), dg.sub_digits(b, sp))
     return torch.cat([ct_a(ct), b_new[..., None, :]], dim=-2)

@@ -4,7 +4,8 @@ Port of ``c_lwe_snarks_tpu/models/snark.py`` (GMNO18 designated-verifier
 zk-SNARK, reference src/snark.c):
 
 * setup: the message schedule (s^i, alpha s^i, beta t(s), beta v_i(s))
-  from power doubling and one exact mod-p matvec, then all 2d+m
+  from the powers of s (K9 on the card) and one exact mod-p matvec (K8),
+  with no host read of s, then all 2d+m
   encryptions as ONE fused keystream->encrypt launch (K4) from CTR_S —
   the four CRS sections are back to back in the stream.
 * prover: w, v = v_0 + w and h = (v^2 - 1)/t on the CRT-NTT engine, then
@@ -14,7 +15,9 @@ zk-SNARK, reference src/snark.c):
   Enc(beta t), evaluate the witness bits over the bv section, then (w, h)
   over the s section and (v, h) over the as section; the proof bytes are
   the same.
-* verifier: 5 decrypts and the mod-p relations.
+* verifier: 5 decrypts (their carry folds K10 on the card), t(s) and
+  v_0(s) (K9 then K8) and the mod-p relations, with no host sync up to the
+  returned bool tensor.
 
 Given a mesh (``parallel.mesh``), setup and the prover split their work
 over the ranks: v_i(s) over the rows of v, the encryptions and the five

@@ -36,6 +36,10 @@ SIGNATURES = {
     "cls_ntt_levels": ("p", "p", "p", "p", "p", *("i64",) * 4),
     "cls_ntt_newton": ("p", "p", "p", "p", *("i64",) * 5, "u32", "u32"),
     "cls_gated_rowsum_p": ("p", "p", "i64", "i64", "p", "p", "p"),
+    "cls_matvec_mod_p": ("p", "p", "i64", "i64", "i64", "p", "p", "p"),
+    "cls_powers_mod_p": ("p", "i64", "p"),
+    "cls_carry_fold": ("p", "u32", "i64", "i64", "i64", "p"),
+    "cls_carry_fold_b_rows": ("p", "p", "p", "p", "i64", "i64", "p"),
     "cls_keystream_blocks": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_keystream_fold_p": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_eval_mac_planes": (

@@ -8,6 +8,11 @@ headroom arguments of the JAX package become plain bounds below 2^47.
 Byte contractions run as float64 matrix products, exact while every
 partial sum is < 2^53 (K * 255^2 < 2^53 for any contraction length K
 here).  The unsigned operands need none of the MXU's int8 recentring.
+
+On a CUDA tensor the carry fold is K10 (``csrc/digits.cu``), also in its
+b-row form (``carry_fold_b_rows``, setup's b = <sk, a> + p * e + m from
+K4's planes); ``LAUNCHES`` counts its launches.  The CPU takes the plain
+versions, ``carry_fold_plain`` and ``b_rows_plain``.
 """
 
 from __future__ import annotations
@@ -18,8 +23,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 DIGITS = 88  # mod-2^704 width in base-256 digits
 FULL_DIGITS = 92  # PRG bytes per sampled value (LOGQ_BYTES, src/lwe.h:29)
+
+LAUNCHES = {"carry_fold": 0}
+_P = (1 << 32) - 5
 
 
 # --------------------------------------------------------------------------
@@ -55,15 +65,18 @@ def partial_fold(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def carry_fold(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
-    """Normalize non-negative planes (each < 2^47) to uint8 digits.
+def carry_fold_plain(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
+    """K10's plain version: normalize non-negative planes (each < 2^47).
 
-    Returns the value mod 256^ndigits as uint8 [..., ndigits].  Six
-    shift-add passes bring every position to <= 256; the remaining
-    one-bit ripple is resolved by carry lookahead: position t receives a
-    carry iff the nearest position below it that is not 255 holds 256.
+    Returns the value mod 256^ndigits as uint8 [..., ndigits] (planes
+    [..., K] with K < ndigits are zero-extended first).  Six shift-add
+    passes bring every position to <= 256; the remaining one-bit ripple is
+    resolved by carry lookahead: position t receives a carry iff the
+    nearest position below it that is not 255 holds 256.
     """
     x = acc.to(torch.int64)
+    if x.shape[-1] < ndigits:
+        x = F.pad(x, (0, ndigits - x.shape[-1]))
     for _ in range(6):  # 2^47 -> 2^39 -> 2^31 -> 2^23 -> 2^15 -> 2^7+255 -> 256
         x = partial_fold(x)
     iota = torch.arange(x.shape[-1], device=x.device).expand_as(x)
@@ -73,6 +86,64 @@ def carry_fold(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
     carry_in = torch.zeros_like(x)
     carry_in[..., 1:] = (g_idx > b_idx)[..., :-1].to(torch.int64)
     return ((x + carry_in) & 255)[..., :ndigits].to(torch.uint8)
+
+
+def carry_fold(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
+    """Normalize non-negative planes [..., K] to uint8 digits [..., ndigits]:
+    the value sum_t acc[..., t] * 256^t mod 256^ndigits.
+
+    K10: on a CUDA tensor, one launch of ``csrc/digits.cu`` (int64 or int32
+    planes, any non-negative value); on the CPU, ``carry_fold_plain``
+    (planes < 2^47)."""
+    if acc.device.type == "cpu":
+        return carry_fold_plain(acc, ndigits)
+    k = acc.shape[-1]
+    assert k >= 1 and ndigits >= 1
+    x = acc if acc.dtype in (torch.int64, torch.int32) else acc.to(torch.int64)
+    x = x.contiguous()
+    out = torch.empty(*acc.shape[:-1], ndigits, dtype=torch.uint8, device=acc.device)
+    rows = x.numel() // k
+    if rows:
+        _build.launch("cls_carry_fold", x, int(x.dtype == torch.int32), rows, k, ndigits, out)
+        LAUNCHES["carry_fold"] += 1
+    return out
+
+
+def b_rows_plain(v_lo: torch.Tensor, v_hi: torch.Tensor, errs: torch.Tensor,
+                 msgs: torch.Tensor) -> torch.Tensor:
+    """The b-row form's plain version: K4's nibble planes to the JAX
+    package's dot planes (``nibble_dot_planes``), plus p * e and m as
+    planes (``pe_m_planes``), then the carry fold."""
+    return carry_fold_plain(nibble_dot_planes(v_lo, v_hi) + pe_m_planes(msgs, errs))
+
+
+def carry_fold_b_rows(v_lo: torch.Tensor, v_hi: torch.Tensor, errs: torch.Tensor,
+                      msgs: torch.Tensor) -> torch.Tensor:
+    """setup's b-rows <sk, a> + p * e + m mod 2^704 as uint8 [B, 88].
+
+    v_lo, v_hi: K4's nibble dot planes [B, 88] (int32 from the kernel;
+    ``eval_fused.encrypt_b_planes``); errs: uint8 [B, 88]; msgs: int64
+    words [B].  K10's b-row form: on a CUDA tensor one launch that stages
+    each position's v_lo + 16 v_hi and error byte, adds p * e (p's four
+    bytes) and m's bytes as it walks the row's carry; inputs must be
+    contiguous there, of these types and shapes (else ValueError).  On the
+    CPU, ``b_rows_plain``."""
+    if v_lo.device.type == "cpu":
+        return b_rows_plain(v_lo, v_hi, errs, msgs)
+    rows = msgs.shape[0]
+    for name, t, dtype, shape in (("v_lo", v_lo, torch.int32, (rows, DIGITS)),
+                                  ("v_hi", v_hi, torch.int32, (rows, DIGITS)),
+                                  ("errs", errs, torch.uint8, (rows, DIGITS)),
+                                  ("msgs", msgs, torch.int64, (rows,))):
+        try:
+            _build.check_tensor(t, dtype, shape, v_lo.device)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+    out = torch.empty(rows, DIGITS, dtype=torch.uint8, device=v_lo.device)
+    if rows:
+        _build.launch("cls_carry_fold_b_rows", v_lo, v_hi, errs, msgs, rows, DIGITS, out)
+        LAUNCHES["carry_fold"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -151,6 +222,28 @@ def combine_shift_planes(planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def p_bytes(device) -> torch.Tensor:
+    """int64 [4]: p's little-endian bytes, on the device once."""
+    return torch.tensor([(_P >> (8 * i)) & 255 for i in range(4)], device=device)
+
+
+def nibble_dot_planes(v_lo: torch.Tensor, v_hi: torch.Tensor) -> torch.Tensor:
+    """K4's nibble dot planes -> the JAX package's <sk, a> planes:
+    partial_fold(v_lo + 16 * partial_fold(v_hi)), int64 (<= 255 + ~2^21)."""
+    hi_f = partial_fold(v_hi.to(torch.int64))  # <= 255 + 2^21
+    return partial_fold(v_lo.to(torch.int64) + 16 * hi_f)
+
+
+def pe_m_planes(msgs: torch.Tensor, errs: torch.Tensor) -> torch.Tensor:
+    """p * e + m as int64 planes [B, 88] (< 2^26 a position): errs uint8
+    [B, 88] times p's bytes, shifted, plus the message words' four bytes."""
+    pe = combine_shift_planes(errs.to(torch.int64)[None] * p_bytes(errs.device).reshape(4, 1, 1))
+    shifts = torch.arange(4, device=msgs.device) * 8
+    m = (msgs[..., None] >> shifts) & 255
+    return pe + F.pad(m, (0, pe.shape[-1] - 4))
+
+
 # --------------------------------------------------------------------------
 # Elementwise digit ops.
 # --------------------------------------------------------------------------
@@ -191,8 +284,6 @@ def scalar_mul_digits(a: torch.Tensor, c_bytes: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # mod-p fold: digits -> residue mod p = 2^32 - 5.
 # --------------------------------------------------------------------------
-
-_P = (1 << 32) - 5
 
 
 def mod_p(digits: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ reaches device memory:
   vectors over ``d`` sequential ciphertexts, the byte-plane MACs
   out[c, k, coord, digit] = sum_i byte_c(coeff_k[i]) * a_i[coord, digit].
 * ``encrypt_b_fused`` (K4): <sk, a_i> mod 2^704 for ``count`` sequential
-  ciphertexts, as accumulator planes that ``carry_fold`` normalizes.
+  ciphertexts, as accumulator planes that ``carry_fold`` normalizes;
+  ``encrypt_b_planes`` returns the kernel's two nibble plane arrays as
+  they are, for ``digits.carry_fold_b_rows`` (K10's b-row form).
 
 Ciphertext i of a section starts at stream byte offset + i * CTR_CT with
 CTR_CT = 92n; of each 92-byte draw the low 88 bytes are digits and the
@@ -92,10 +94,24 @@ def eval_mac_planes(
     return out
 
 
-def _enc_epilogue(v_lo: torch.Tensor, v_hi: torch.Tensor) -> torch.Tensor:
-    """Nibble-split dot planes -> the JAX package's output planes."""
-    hi_f = dg.partial_fold(v_hi)  # <= 255 + 2^21
-    return dg.partial_fold(v_lo + 16 * hi_f)
+def encrypt_b_planes_plain(
+    key: sampling.PRGKey, section_offset: int, sk: torch.Tensor, count: int,
+    n: int, ctr_ct: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of ``encrypt_b_planes``: (v_lo, v_hi) as int64."""
+    sk_lo = (sk & 15).to(torch.float64)
+    sk_hi = (sk >> 4).to(torch.float64)
+    lo_rows, hi_rows = [], []
+    for lo in range(0, count, _PLAIN_ROWS):
+        rows = min(_PLAIN_ROWS, count - lo)
+        a = _expand_a_plain(key, section_offset + lo * ctr_ct, rows, n)
+        at = a.to(torch.float64).transpose(1, 2)  # [rows, 88, n]
+        lo_rows.append(dg.antidiag_sums((at @ sk_lo).to(torch.int64))[..., : dg.DIGITS])
+        hi_rows.append(dg.antidiag_sums((at @ sk_hi).to(torch.int64))[..., : dg.DIGITS])
+    if not lo_rows:
+        empty = torch.zeros(0, dg.DIGITS, dtype=torch.int64, device=sk.device)
+        return empty, empty.clone()
+    return torch.cat(lo_rows), torch.cat(hi_rows)
 
 
 def encrypt_b_fused_plain(
@@ -103,19 +119,7 @@ def encrypt_b_fused_plain(
     n: int, ctr_ct: int,
 ) -> torch.Tensor:
     """Plain torch form of ``encrypt_b_fused`` (same output)."""
-    sk_lo = (sk & 15).to(torch.float64)
-    sk_hi = (sk >> 4).to(torch.float64)
-    out = []
-    for lo in range(0, count, _PLAIN_ROWS):
-        rows = min(_PLAIN_ROWS, count - lo)
-        a = _expand_a_plain(key, section_offset + lo * ctr_ct, rows, n)
-        at = a.to(torch.float64).transpose(1, 2)  # [rows, 88, n]
-        v_lo = dg.antidiag_sums((at @ sk_lo).to(torch.int64))[..., : dg.DIGITS]
-        v_hi = dg.antidiag_sums((at @ sk_hi).to(torch.int64))[..., : dg.DIGITS]
-        out.append(_enc_epilogue(v_lo, v_hi))
-    if not out:
-        return torch.zeros(0, dg.DIGITS, dtype=torch.int64, device=sk.device)
-    return torch.cat(out)
+    return dg.nibble_dot_planes(*encrypt_b_planes_plain(key, section_offset, sk, count, n, ctr_ct))
 
 
 def fits_enc_bound(n: int) -> bool:
@@ -130,21 +134,21 @@ def check_enc_bound(n: int) -> None:
         raise ValueError(f"n={n} overflows the kernel's signed 32-bit accumulators")
 
 
-def encrypt_b_fused(
+def encrypt_b_planes(
     key: sampling.PRGKey, section_offset: int, sk: torch.Tensor, count: int,
     n: int, ctr_ct: int,
-) -> torch.Tensor:
-    """<sk, a_i> mod 2^704 for ``count`` sequential section ciphertexts (K4).
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's raw output for ``count`` sequential section ciphertexts: the
+    nibble dot planes (v_lo, v_hi), each [count, 88], with sk split into
+    nibbles, v_lo[t] = sum_{j, k+l=t} a_j[k] * (sk[j, l] & 15) and v_hi
+    likewise with sk >> 4 (each < n * 88 * 255 * 15 < 2^31).
 
-    sk: uint8 [n, 88].  Returns int64 planes [count, 88] equal to the JAX
-    package's (non-negative, <= 255 + ~2^21): with sk split into nibbles,
-    v_lo[t] = sum_{j, k+l=t} a_j[k] * (sk[j, l] & 15) and v_hi likewise
-    with sk >> 4, then partial_fold(v_lo + 16 * partial_fold(v_hi)).  The
-    caller adds p * e + m and carry-folds.
-    """
+    sk: uint8 [n, 88].  On a CUDA tensor, one launch of K4, whose two int32
+    arrays are returned as they are (``digits.carry_fold_b_rows`` reads
+    them); on the CPU, ``encrypt_b_planes_plain`` (int64)."""
     assert ctr_ct == 92 * n and section_offset >= 0
     if sk.device.type == "cpu":
-        return encrypt_b_fused_plain(key, section_offset, sk, count, n, ctr_ct)
+        return encrypt_b_planes_plain(key, section_offset, sk, count, n, ctr_ct)
     if sk.device.type != "cuda" or key.device != sk.device:
         raise ValueError(f"sk on {sk.device}, key on {key.device}")
     _build.check_tensor(sk, torch.uint8, (n, dg.DIGITS), sk.device)
@@ -159,4 +163,20 @@ def encrypt_b_fused(
             v_lo, v_hi,
         )
         LAUNCHES["encrypt_b_fused"] += 1
-    return _enc_epilogue(_build.words64(v_lo), _build.words64(v_hi))
+    return v_lo, v_hi
+
+
+def encrypt_b_fused(
+    key: sampling.PRGKey, section_offset: int, sk: torch.Tensor, count: int,
+    n: int, ctr_ct: int,
+) -> torch.Tensor:
+    """<sk, a_i> mod 2^704 for ``count`` sequential section ciphertexts (K4).
+
+    sk: uint8 [n, 88].  Returns int64 planes [count, 88] equal to the JAX
+    package's (non-negative, <= 255 + ~2^21): ``digits.nibble_dot_planes``
+    of ``encrypt_b_planes``.  The caller adds p * e + m and carry-folds
+    (setup itself takes ``encrypt_b_planes`` into
+    ``digits.carry_fold_b_rows``).
+    """
+    v_lo, v_hi = encrypt_b_planes(key, section_offset, sk, count, n, ctr_ct)
+    return dg.nibble_dot_planes(v_lo, v_hi)

@@ -8,11 +8,14 @@ intermediate reaches 2^63, and every result is the canonical residue in
 (including ``add_u32_mod_p``'s double-wrap window, which exact int64
 arithmetic covers by construction).
 
-``matvec_mod_p`` and the plain version of the gated row-sum run as
-float64 matrix products: torch refuses integer ``mm`` on CUDA, and a
-float64 sum of integers is exact while every partial sum stays below
-2^53, which the operand splits here guarantee.  On a CUDA tensor the
-gated row-sum is K7 (``csrc/rowsum.cu``); ``LAUNCHES`` counts its launches.
+On a CUDA tensor three functions run hand-written kernels, and
+``LAUNCHES`` counts their launches: the gated row-sum is K7
+(``csrc/rowsum.cu``), ``matvec_mod_p`` K8 and ``powers_mod_p`` K9
+(``csrc/modp.cu``).  Their plain versions, which the CPU takes, are
+``gated_rowsum_plain`` and ``matvec_plain`` (float64 matrix products:
+torch refuses integer ``mm`` on CUDA, and a float64 sum of integers is
+exact while every partial sum stays below 2^53, which the operand splits
+here guarantee) and ``powers_plain`` (doubling).
 """
 
 from __future__ import annotations
@@ -28,8 +31,20 @@ P = (1 << 32) - 5  # plaintext modulus (GAMMA_P)
 _CHUNK = 1024
 # rows a CUDA block of K7 sums (csrc/rowsum.cu: kChunkRows, also its columns)
 ROWSUM_CHUNK_ROWS = 256
+# K8 (csrc/modp.cu): rows a CUDA block sums together (kRows), the fewest
+# columns a block takes when a row is split over blocks, and the blocks
+# that fill the card (132 SMs x 8)
+MATVEC_ROWS = 4
+MATVEC_MIN_SEGMENT = 2048
+MATVEC_FILL_BLOCKS = 1056
+# K8's per-thread sums are exact while d < 2^37: a row of 2^37 int64
+# entries is 1 TiB, more than any card holds
+MATVEC_MAX_D = 1 << 37
+# columns a float64 chunk of matvec_plain sums: each half-product sum stays
+# below 2^53 for fewer than 2^21 columns
+_MATVEC_PLAIN_COLS = 1 << 20
 
-LAUNCHES = {"gated_rowsum_p": 0}
+LAUNCHES = {"gated_rowsum_p": 0, "matvec_mod_p": 0, "powers_mod_p": 0}
 
 
 def mul32(a, b):
@@ -101,8 +116,8 @@ def sum_mod_p(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return x.sum(axis) % P
 
 
-def powers_mod_p(s: torch.Tensor, count: int) -> torch.Tensor:
-    """[1, s, s^2, ..., s^(count-1)] mod p by doubling."""
+def powers_plain(s: torch.Tensor, count: int) -> torch.Tensor:
+    """K9's plain version: [1, s, ..., s^(count-1)] mod p by doubling."""
     assert count >= 1
     out = torch.ones(1, dtype=torch.int64, device=s.device)
     s_pow = s.reshape(1)
@@ -112,10 +127,27 @@ def powers_mod_p(s: torch.Tensor, count: int) -> torch.Tensor:
     return out[:count]
 
 
+def powers_mod_p(s: torch.Tensor, count: int) -> torch.Tensor:
+    """[1, s, s^2, ..., s^(count-1)] mod p: int64 [count].
+
+    s: a one-element int64 tensor (0-d or [1]) < p.  K9: on a CUDA tensor,
+    one launch of ``csrc/modp.cu`` that reads s on the device (the host
+    never does); on the CPU, ``powers_plain``."""
+    assert count >= 1
+    if s.device.type == "cpu":
+        return powers_plain(s, count)
+    if s.dtype != torch.int64 or s.numel() != 1:
+        raise ValueError(f"s: expected one int64 entry, got {s.dtype} {tuple(s.shape)}")
+    out = torch.empty(count, dtype=torch.int64, device=s.device)
+    _build.launch("cls_powers_mod_p", s.reshape(1), count, out)
+    LAUNCHES["powers_mod_p"] += 1
+    return out
+
+
 def poly_eval_mod_p(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Evaluate polynomial(s) at scalar s: coeffs [..., d] -> [...]."""
-    pw = powers_mod_p(s, coeffs.shape[-1])
-    return sum_mod_p(mulmod_p(coeffs, pw))
+    """Evaluate polynomial(s) at scalar s: coeffs [..., d] -> [...]; on a
+    CUDA tensor K9 (the powers) then K8 (each polynomial a row)."""
+    return matvec_mod_p(coeffs, powers_mod_p(s, coeffs.shape[-1]))
 
 
 def gated_rowsum_plain(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -160,23 +192,65 @@ def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_i v[..., r, i] * w[i] mod p — rows of a mod-p matvec.
+def matvec_plain(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K8's plain version: float64 products over 16-bit halves.
 
     v: int64 [..., m, d]; w: int64 [d]; entries < p.  Both operands split
-    into 16-bit halves; each of the four half-products sums d terms below
-    2^32, so for d < 2^21 every float64 sum stays below 2^53 (exact).
+    into 16-bit halves; each of the four half-products sums fewer than
+    2^21 terms below 2^32 in a column chunk, so every float64 sum stays
+    below 2^53 (exact); the chunks' residues are added mod p.
     """
     d = v.shape[-1]
-    assert d < 1 << 21, d
-    wp = torch.stack([w & 0xFFFF, w >> 16], dim=1).to(torch.float64)  # [d, 2]
     rows = v.reshape(-1, d)
-    out = []
-    for lo in range(0, rows.shape[0], _CHUNK):
-        vc = rows[lo : lo + _CHUNK]
-        c_lo = ((vc & 0xFFFF).to(torch.float64) @ wp).to(torch.int64)  # [r, 2]
-        c_hi = ((vc >> 16).to(torch.float64) @ wp).to(torch.int64)
-        mid = (c_lo[:, 1] + c_hi[:, 0]) % P  # weight 2^16
-        top = c_hi[:, 1] % P  # weight 2^32 = 5 (mod p)
-        out.append((c_lo[:, 0] + mulmod_p(mid, 1 << 16) + mulmod_p(top, 5)) % P)
-    return torch.cat(out).reshape(v.shape[:-1])
+    total = torch.zeros(rows.shape[0], dtype=torch.int64, device=v.device)
+    for c0 in range(0, d, _MATVEC_PLAIN_COLS):
+        wc = w[c0 : c0 + _MATVEC_PLAIN_COLS]
+        wp = torch.stack([wc & 0xFFFF, wc >> 16], dim=1).to(torch.float64)  # [cols, 2]
+        for lo in range(0, rows.shape[0], _CHUNK):
+            vc = rows[lo : lo + _CHUNK, c0 : c0 + _MATVEC_PLAIN_COLS]
+            c_lo = ((vc & 0xFFFF).to(torch.float64) @ wp).to(torch.int64)  # [r, 2]
+            c_hi = ((vc >> 16).to(torch.float64) @ wp).to(torch.int64)
+            mid = (c_lo[:, 1] + c_hi[:, 0]) % P  # weight 2^16
+            top = c_hi[:, 1] % P  # weight 2^32 = 5 (mod p)
+            part = (c_lo[:, 0] + mulmod_p(mid, 1 << 16) + mulmod_p(top, 5)) % P
+            total[lo : lo + _CHUNK] = (total[lo : lo + _CHUNK] + part) % P
+    return total.reshape(v.shape[:-1])
+
+
+def matvec_splits(rows: int, d: int) -> int:
+    """Blocks K8 splits each row's columns over: 1 when the row groups
+    alone fill the card, else enough to fill it, each block taking at
+    least MATVEC_MIN_SEGMENT columns (at most 65,535: the grid's y)."""
+    groups = -(-rows // MATVEC_ROWS)
+    if groups >= MATVEC_FILL_BLOCKS:
+        return 1
+    return max(1, min(-(-MATVEC_FILL_BLOCKS // groups), -(-d // MATVEC_MIN_SEGMENT), 65535))
+
+
+def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_i v[..., r, i] * w[i] mod p — rows of a mod-p matvec, any d.
+
+    v: int64 [..., m, d]; w: int64 [d]; entries < p.  Returns int64
+    [..., m] in [0, p).  K8: on a CUDA tensor, one launch of
+    ``csrc/modp.cu``, which reads v once; v and w must be contiguous int64
+    there (else ValueError).  On the CPU, ``matvec_plain``."""
+    d = v.shape[-1]
+    if v.device.type == "cpu":
+        return matvec_plain(v, w)
+    if v.dtype != torch.int64 or not v.is_contiguous() or d >= MATVEC_MAX_D:
+        raise ValueError(f"v: expected a contiguous int64 [..., m, d < 2^37], got {v.dtype} "
+                         f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
+    if w.dtype != torch.int64 or w.shape != (d,) or w.device != v.device or not w.is_contiguous():
+        raise ValueError(f"w: expected a contiguous int64 [{d}] on {v.device}, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    rows = v.numel() // d if d else 0
+    if rows == 0 or d == 0:
+        return torch.zeros(v.shape[:-1], dtype=torch.int64, device=v.device)
+    out = torch.empty(v.shape[:-1], dtype=torch.int64, device=v.device)
+    splits = matvec_splits(rows, d)
+    groups = -(-rows // MATVEC_ROWS)
+    partial = torch.empty(rows * splits if splits > 1 else 0, dtype=torch.int64, device=v.device)
+    done = torch.empty(groups if splits > 1 else 0, dtype=torch.int32, device=v.device)
+    _build.launch("cls_matvec_mod_p", v, w, rows, d, splits, partial, done, out)
+    LAUNCHES["matvec_mod_p"] += 1
+    return out

@@ -127,8 +127,8 @@ def v_at_s_sharded(
     """v_i(s) for all ``total`` polynomials, on every rank.
 
     v: the rank's rows of the [total, d] matrix by the chunk rule.  A
-    rank's part is the mod-p matvec of its rows (``modp.matvec_mod_p``),
-    then one ``all_gather`` of the values."""
+    rank's part is the mod-p matvec of its rows (``modp.matvec_mod_p``:
+    K8 on the card), then one ``all_gather`` of the values."""
     return gather_rows(modp.matvec_mod_p(v, powers), total, mesh)
 
 
@@ -207,7 +207,8 @@ def eval_poly_multi_sharded(
     uint8 [k, n+1, 88] on every rank, equal to ``lwe.eval_poly_multi``.
 
     Each rank's share is digits <= 255, so one int32 ``all_reduce`` keeps
-    every position <= 255 * world, and one ``carry_fold`` normalizes."""
+    every position <= 255 * world, and one ``carry_fold`` normalizes (K10
+    on the card, which reads the int32 sums as they are)."""
     group, rank, world = axis(mesh)
     part = eval_poly_multi_part(rank, world, key, section_offset, b_rows, coeffs, params, tile=tile)
     part = part.to(torch.int32)

@@ -7,7 +7,7 @@ Phases (each prints one or more lines; any failure raises and exits
 non-zero, and only a full pass prints the final JSON line):
 
 1. build the CUDA kernels from c_lwe_snarks_tpu_torch/csrc with nvcc;
-2. hold each kernel (K1..K5) against its plain torch version on the card,
+2. hold each kernel (K1..K10) against its plain torch version on the card,
    bit-exact, at small shapes (AES-block leads 0 and 8, a counter
    low-word wrap, a counter above 2^32, ragged counts, k = 5 lanes) and at
    the largest shape the release main path gives it, where both are timed
@@ -26,15 +26,23 @@ non-zero, and only a full pass prints the final JSON line):
    also at k = 1 beside k = 5; K1 also at a scan tile's size beside
    setup's error draws; one ``torch.profiler`` pass over random_ssp at
    release parameters and over K1's and K5's launches (device-side
-   durations);
+   durations); K6 and K7 at the prover's shapes; K8 (the mod-p matvec), K9
+   (the powers of s) and K10 (the carry fold, and its b-row form) at their
+   edges (d < 8 and past 2^21, s = 0, 1, p - 1, the worst carry ripple,
+   planes near 2^62 against Python ints) and at setup's, the verifier's
+   and the prover's shapes, timed and device-side; the release prover,
+   setup and verifier under the profiler (tools/profile_prover.py,
+   tools/profile_stage.py);
 3. run the protocol at the tiny and toy parameters on the card and hold
    the SSP/CRS/VRS/proof sha256 digests against the committed golden
    file (made from the JAX package); stream the toy SSP to a file and back;
 4. run the protocol at release parameters through the package's own
    entry point with every launch counter reset just before, check that
    the verifier accepts, that a tampered proof is rejected, that two CRS
-   terms decrypt to 1 and alpha, and that K1..K4 ran; then the same run
-   five more times for the spread of the stage walls;
+   terms decrypt to 1 and alpha, and that every kernel of the path ran
+   (K1..K4, K6..K10); run setup's message schedule and the verifier once
+   more under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   then the same run five more times for the spread of the stage walls;
 5. walk the stage-wise path at release parameters with the counters reset
    again: write CRS, VRS and proof to files, read them back, probe the
    reloaded CRS and proof, prove stage by stage from the reloaded CRS
@@ -46,7 +54,8 @@ non-zero, and only a full pass prints the final JSON line):
    W = 4 and W = 3, one after another on the card, combined as the
    collectives would and held byte for byte against the release run, with
    the counters reset again (K1, K2, K3 and K4 at every rank's stream
-   offset), then the CLI under torchrun in a world of 1 over NCCL.
+   offset, K7 and K8 over a rank's rows of v, K10 on the int32 sum of the
+   parts), then the CLI under torchrun in a world of 1 over NCCL.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -83,16 +92,21 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # K6 and K7 port jnp code the JAX package compiles into its programs
     "ntt": ("c_lwe_snarks_tpu_torch/csrc/ntt.cu", "c_lwe_snarks_tpu/ops/ntt.py:266"),
     "gated_rowsum_p": ("c_lwe_snarks_tpu_torch/csrc/rowsum.cu", "c_lwe_snarks_tpu/ops/modp.py:162"),
+    # K8..K10: setup's message schedule, the verifier's evaluations at s,
+    # the digit carry fold (jnp code too)
+    "matvec_mod_p": ("c_lwe_snarks_tpu_torch/csrc/modp.cu", "c_lwe_snarks_tpu/ops/modp.py:186"),
+    "powers_mod_p": ("c_lwe_snarks_tpu_torch/csrc/modp.cu", "c_lwe_snarks_tpu/ops/modp.py:139"),
+    "carry_fold": ("c_lwe_snarks_tpu_torch/csrc/digits.cu", "c_lwe_snarks_tpu/ops/digits.py:73"),
 }
 # kernels each path must launch at least once
 RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused", "ntt",
-                "gated_rowsum_p")
+                "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold")
 STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt",
-                  "gated_rowsum_p")
+                  "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold")
 # the sharded phase's parts: random_ssp's tiles reach K7; the 4-step NTT
 # needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
 SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
-                "gated_rowsum_p")
+                "gated_rowsum_p", "matvec_mod_p", "carry_fold")
 SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.  The
@@ -138,6 +152,16 @@ BITSLICED_OPS = (115 * 16 * 14 + 108 * 4 * 13 + 128 * 15 + 4 * 480) / 32 / 2
 BUTTERFLY_OPS = 16
 POINTWISE_OPS = 8 + 9
 CRT_OPS = 40
+# K8 (modp.cu), an entry: the 32 x 32 -> 64 bit product (2), its fold to
+# < 2^35 (one wide multiply-add, 2), the 64-bit add (2); K9, a mulmod:
+# the product (2) and aes_core.cuh's fold64_mod_p (7); K10 (digits.cu), a
+# position: the 64-bit add of the carry (2), the digit's mask and the
+# carry's shift (2), and in the b-row form lo + 16 hi (3), four byte
+# products of p and the errors (8) and the message byte (3).
+MATVEC_OPS = 6
+MULMOD_OPS = 2 + 7
+FOLD_POS_OPS = 4
+BROW_POS_OPS = 4 + 3 + 8 + 3
 
 
 def check(cond, msg: str) -> None:
@@ -194,9 +218,9 @@ def bound(nbytes: float, int32_ops: float, int8_ops: float = 0.0) -> dict:
 
 
 def reset_counters() -> tuple:
-    from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, modp, ntt
+    from c_lwe_snarks_tpu_torch.ops import aes, digits, eval_fused, modp, ntt
 
-    counters = (aes.LAUNCHES, eval_fused.LAUNCHES, ntt.LAUNCHES, modp.LAUNCHES)
+    counters = (aes.LAUNCHES, eval_fused.LAUNCHES, ntt.LAUNCHES, modp.LAUNCHES, digits.LAUNCHES)
     for c in counters:
         for name in c:
             c[name] = 0
@@ -383,9 +407,82 @@ def poly_cases(P, ent_key) -> dict:
     }
 
 
+def python_fold(acc, ndigits: int):
+    """uint8 [rows, ndigits]: sum_t acc[r, t] * 256^t mod 256^ndigits of
+    each row of a CPU int64 tensor, by Python ints (K10's reference where
+    its plain version's 2^47 range ends)."""
+    import numpy as np
+    import torch
+
+    out = []
+    for row in acc.tolist():
+        x = sum(v << (8 * t) for t, v in enumerate(row)) % (1 << (8 * ndigits))
+        out.append(np.frombuffer(x.to_bytes(ndigits, "little"), np.uint8))
+    return torch.from_numpy(np.stack(out))
+
+
+def powers_ops(count: int) -> int:
+    """K9's operations for count powers: thread i squares once for each bit
+    of i and multiplies once for each set bit."""
+    return MULMOD_OPS * sum(i.bit_length() + i.bit_count() for i in range(count))
+
+
+def schedule_cases(P, crs_key, ent_key) -> dict:
+    """K8's, K9's and K10's cases at the release main path's shapes (the
+    case format of phase_kernels; the last case of each is reported):
+    setup's v, t and powers of s from a release random_ssp, setup's b-rows
+    from K4's planes with the release errors and messages, and the
+    prover's evaluation planes."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+    from c_lwe_snarks_tpu_torch.ops import eval_fused, modp, sampling
+
+    d, m, n = P.d, P.m, P.n
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    _, ssp = tssp.random_ssp(ent_key, 0, P)
+    scalars = sampling.keystream_bytes(ent_key, off_setup, 24).reshape(3, 8)
+    alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
+    powers = modp.powers_mod_p(s, d)
+    t_row = ssp.t[None, :]
+    n_enc = 2 * d + m
+    msgs = tsnark.setup_messages(alpha, beta, powers, modp.matvec_mod_p(t_row, powers)[0],
+                                 modp.matvec_mod_p(ssp.v, powers))
+    errs = tsnark.setup_errs(ent_key, off_setup, 0, n_enc, P)
+    sk = tlwe.key_gen(ent_key, off_setup + 24, P)
+    v_lo, v_hi = eval_fused.encrypt_b_planes(crs_key, P.ctr_s, sk, n_enc, n, P.ctr_ct)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    planes = torch.randint(0, 1 << 26, (5, n + 1, 88), generator=gen, device=DEVICE)
+    return {
+        "matvec_mod_p": [
+            (f"t(s) and the verifier's rows: [1, {d}]", 20,
+             lambda: modp.matvec_mod_p(t_row, powers), lambda: modp.matvec_plain(t_row, powers),
+             bound(8 * (2 * d + 1), MATVEC_OPS * d)),
+            (f"setup's v_i(s): v [{m}, {d}]", 10,
+             lambda: modp.matvec_mod_p(ssp.v, powers), lambda: modp.matvec_plain(ssp.v, powers),
+             bound(8 * (m * d + d + m), MATVEC_OPS * m * d))],
+        "powers_mod_p": [
+            (f"setup's and the verifier's powers of s: count {d} (launch-bound)", 20,
+             lambda: modp.powers_mod_p(s, d), lambda: modp.powers_plain(s, d),
+             bound(8 * (d + 1), powers_ops(d)))],
+        "carry_fold": [
+            (f"the prover's evaluation planes: [5, {n + 1}, 88] int64 (launch-bound)", 20,
+             lambda: dg.carry_fold(planes), lambda: dg.carry_fold_plain(planes),
+             bound(9 * planes.numel(), FOLD_POS_OPS * planes.numel())),
+            (f"setup's b-rows: {n_enc} rows of K4's planes, errors and messages", 20,
+             lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs),
+             lambda: dg.b_rows_plain(v_lo, v_hi, errs, msgs),
+             bound(n_enc * 88 * (4 + 4 + 1 + 1) + 8 * n_enc, BROW_POS_OPS * n_enc * 88))],
+    }
+
+
 def phase_kernels(results: dict) -> None:
-    """K1..K5 against their plain versions, the host cipher and the golden
-    keystream windows."""
+    """Every kernel against its plain version (K1 and K5 also against the
+    host cipher and the golden keystream windows), at small shapes and
+    edges, then at the release main path's shapes, timed."""
     import numpy as np
     import torch
 
@@ -511,6 +608,54 @@ def phase_kernels(results: dict) -> None:
     worse("eval_mac_planes", max_abs_err(
         eval_fused.eval_mac_planes(key, REL.ctr_s, c_max, REL.n, REL.ctr_ct),
         eval_fused.eval_mac_planes_plain(key, REL.ctr_s, c_max, REL.n, REL.ctr_ct)))
+    # K8 at d < 8, 8, 32,768, 32,769 and past 2^21 (the repaired fault),
+    # every entry p - 1, one row split over blocks, a ragged row group;
+    # K9 at s = 0, 1, p - 1 and random, counts 1, 2, 3, 1,000, 2^15 + 1;
+    # K10 on random int64 and int32 planes, the worst ripple (256, then 87
+    # positions of 255), K past and short of ndigits, planes near 2^62
+    # (against Python ints), its b-row form at the nibble planes' bound
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+    from c_lwe_snarks_tpu_torch.ops import modp
+
+    pm1 = modp.P - 1
+    for rows, d8 in ((1, 1), (3, 7), (5, 8), (2, 33), (21, 1 << 15), (1, (1 << 15) + 1),
+                     (1, (1 << 21) + 8), (9, 40000), (4229, 16)):
+        v8 = torch.full((rows, d8), pm1, dtype=torch.int64, device=DEVICE)
+        for w8 in (torch.full((d8,), pm1, dtype=torch.int64, device=DEVICE),
+                   torch.randint(0, modp.P, (d8,), generator=gen).to(DEVICE)):
+            worse("matvec_mod_p", max_abs_err(modp.matvec_mod_p(v8, w8), modp.matvec_plain(v8, w8)))
+        v8.random_(0, modp.P, generator=None)
+        worse("matvec_mod_p", max_abs_err(modp.matvec_mod_p(v8, w8), modp.matvec_plain(v8, w8)))
+    for s9 in (0, 1, pm1, 3141592653):
+        for count in (1, 2, 3, 1000, (1 << 15) + 1):
+            st = torch.tensor(s9, dtype=torch.int64, device=DEVICE)
+            worse("powers_mod_p", max_abs_err(modp.powers_mod_p(st, count), modp.powers_plain(st, count)))
+    ripple = torch.full((88, 88), 255, dtype=torch.int64)
+    ripple[:, 0] = 256
+    ripple[torch.arange(1, 88), torch.arange(1, 88)] = 254
+    folds = [(torch.randint(0, 1 << 47, (300, 88), generator=gen), 88),
+             (torch.randint(0, 1 << 31, (129, 88), generator=gen).int(), 88), (ripple, 88),
+             (torch.randint(0, 1 << 40, (33, 100), generator=gen), 88),
+             (torch.randint(0, 1 << 47, (33, 70), generator=gen), 88),
+             (torch.randint(0, 4 * 255 + 1, (5, 33, 88), generator=gen).int(), 88)]
+    for acc, nd in folds:
+        got = dg.carry_fold(acc.to(DEVICE), nd)
+        worse("carry_fold", max_abs_err(got, dg.carry_fold_plain(acc, nd)))
+        worse("carry_fold", max_abs_err(got.reshape(-1, nd).cpu(), python_fold(acc.reshape(-1, acc.shape[-1]).long(), nd)))
+    wide = torch.randint(0, 1 << 62, (65, 88), generator=gen)
+    worse("carry_fold", max_abs_err(dg.carry_fold(wide.to(DEVICE)).cpu(), python_fold(wide, 88)))
+    for top in (False, True):
+        B = 1000
+        lo = torch.randint(0, 1 << 31, (B, 88), generator=gen).int()
+        hi = torch.randint(0, 1 << 31, (B, 88), generator=gen).int()
+        e10 = torch.randint(0, 256, (B, 88), generator=gen, dtype=torch.uint8)
+        m10 = torch.randint(0, 1 << 32, (B,), generator=gen)
+        if top:  # every nibble plane, error byte and message at its largest
+            for t, x in ((lo, (1 << 31) - 1), (hi, (1 << 31) - 1), (e10, 255), (m10, (1 << 32) - 1)):
+                t.fill_(x)
+        worse("carry_fold", max_abs_err(
+            dg.carry_fold_b_rows(lo.to(DEVICE), hi.to(DEVICE), e10.to(DEVICE), m10.to(DEVICE)),
+            dg.b_rows_plain(lo, hi, e10, m10)))
     for name, e in errs.items():
         print(f"phase kernels: {name} small shapes max_abs_err={e} (tolerance 0)")
 
@@ -589,6 +734,7 @@ def phase_kernels(results: dict) -> None:
              bound(16 * tile_blocks, BITSLICED_OPS * tile_blocks))],
     }
     cases.update(poly_cases(P, ent_key))
+    cases.update(schedule_cases(P, crs_key, ent_key))
     for name, shapes in cases.items():
         for shape, reps, kern, plain, bnd in shapes:
             want, plain_ms = timed(plain)
@@ -670,16 +816,19 @@ def device_times(fn) -> tuple[dict, float]:
     return items, wall
 
 
-def profiled_line(tag: str, kernel: str, counter: str, fn, reps: int, label: str) -> None:
+def profiled_line(tag: str, kernel: str, counter: str, fn, reps: int, label: str,
+                  launches: dict | None = None) -> float | None:
     """One profiled line: the device-side time a launch of ``kernel`` over
     ``reps`` calls of fn, printed only when the trace holds every launch the
-    wrapper counted (``aes.LAUNCHES[counter]`` over the same calls); else
-    "traced X of Y launches: not measured", with the trace's device items."""
+    wrapper counted (``launches[counter]`` over the same calls, default
+    ``aes.LAUNCHES``); else "traced X of Y launches: not measured", with the
+    trace's device items.  Returns the microseconds a launch, or None."""
     from c_lwe_snarks_tpu_torch.ops import aes
 
-    before = aes.LAUNCHES[counter]
+    launches = aes.LAUNCHES if launches is None else launches
+    before = launches[counter]
     items, wall = device_times(fn)
-    launched = aes.LAUNCHES[counter] - before
+    launched = launches[counter] - before
     us = sum(us for name, (us, c) in items.items() if kernel in name)
     count = sum(c for name, (us, c) in items.items() if kernel in name)
     if count != launched or count == 0:
@@ -687,9 +836,10 @@ def profiled_line(tag: str, kernel: str, counter: str, fn, reps: int, label: str
               f"(host {wall / reps * 1e6:.1f} us a call) [{label}]")
         for name, (us_i, c) in sorted(items.items(), key=lambda kv: -kv[1][1])[:6]:
             print(f"phase profile:   trace item x{c} {us_i:.3f} us {name[:90]}")
-        return
+        return None
     print(f"phase profile: {tag}: {count} launches traced, device-side {us / count:.3f} us a "
           f"launch, host {wall / reps * 1e6:.1f} us a call under the profiler [{label}]")
+    return us / count
 
 
 def phase_profile(label: str) -> None:
@@ -700,13 +850,16 @@ def phase_profile(label: str) -> None:
     its wall, device-busy share and copies, and the launches of its
     polynomial stage by kernel name.  A reading, not a check: a
     profiler that traces no device activity is reported as such."""
+    import torch
+
     from c_lwe_snarks_tpu_torch.models import ssp as tssp
-    from c_lwe_snarks_tpu_torch.ops import aes, sampling
+    from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, modp, sampling
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
     from c_lwe_snarks_tpu_torch.utils.params import release
 
     P = release()
     ent_key = sampling.PRGKey(ENT_SEED, DEVICE)
-    tssp.random_ssp(ent_key, 0, P)  # warm
+    _, ssp = tssp.random_ssp(ent_key, 0, P)  # warm
     before = aes.LAUNCHES["keystream_fold_p"]
     items, wall = device_times(lambda: tssp.random_ssp(ent_key, 0, P))
     launched = aes.LAUNCHES["keystream_fold_p"] - before
@@ -727,12 +880,35 @@ def phase_profile(label: str) -> None:
             profiled_line(f"{tag} at {nblocks} blocks", kernel, counter, lambda: [
                 aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version)
                 for _ in range(reps)], reps, label)
+    # K8, K9 and K10 device-side at setup's shapes: v [m, d], 2^15 powers,
+    # the b-rows of 2d + m encryptions (K4's planes made once, outside)
+    s = torch.tensor(123456789, dtype=torch.int64, device=DEVICE)
+    powers = modp.powers_mod_p(s, P.d)
+    n_enc = 2 * P.d + P.m
+    sk = torch.randint(0, 256, (P.n, 88), dtype=torch.uint8, device=DEVICE)
+    v_lo, v_hi = eval_fused.encrypt_b_planes(ent_key, P.ctr_s, sk, n_enc, P.n, P.ctr_ct)
+    errs = torch.randint(0, 256, (n_enc, 88), dtype=torch.uint8, device=DEVICE)
+    msgs = torch.randint(0, modp.P, (n_enc,), device=DEVICE)
+    for tag, kernel, counter, fn, launches in (
+            (f"K8 at setup's v [{P.m}, {P.d}]", "matvec_kernel", "matvec_mod_p",
+             lambda: modp.matvec_mod_p(ssp.v, powers), modp.LAUNCHES),
+            (f"K9 at {P.d} powers", "powers_kernel", "powers_mod_p",
+             lambda: modp.powers_mod_p(s, P.d), modp.LAUNCHES),
+            (f"K10's b-row form at {n_enc} rows", "carry_fold_kernel", "carry_fold",
+             lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs), dg.LAUNCHES)):
+        fn()
+        profiled_line(tag, kernel, counter, lambda: [fn() for _ in range(reps)], reps, label,
+                      launches)
+    del ssp, v_lo, v_hi
     # the release prover after a warm call, and what its polynomial stage
-    # launches by kernel name (tools/profile_prover.py)
+    # launches by kernel name (tools/profile_prover.py); then setup and
+    # the verifier, each traced once (tools/profile_stage.py)
     sys.path.insert(0, str(ROOT / "tools"))
     import profile_prover
+    import profile_stage
 
     profile_prover.run(label)
+    profile_stage.run(("setup", "verifier"), label)
 
 
 def digests(run, P) -> dict:
@@ -785,7 +961,7 @@ def phase_release(label: str):
     from c_lwe_snarks_tpu_torch.__main__ import run_protocol
     from c_lwe_snarks_tpu_torch.models import lwe as tlwe
     from c_lwe_snarks_tpu_torch.models import snark as tsnark
-    from c_lwe_snarks_tpu_torch.ops import sampling
+    from c_lwe_snarks_tpu_torch.ops import modp, sampling
     from c_lwe_snarks_tpu_torch.utils.params import release
 
     P = release()
@@ -814,6 +990,24 @@ def phase_release(label: str):
           f"Dec(s_0)={dec_s0} Dec(as_0)==alpha: {dec_as0 == int(run.vrs.alpha)}")
     check(rejected, "release: a tampered proof was accepted")
     check(dec_s0 == 1 and dec_as0 == int(run.vrs.alpha), "release: CRS decrypt probe")
+    # setup's message schedule (K9, K8) and the verifier (K10, K9, K8), each
+    # once with any host sync an error, up to the verifier's bool tensor
+    vrs, ssp = run.vrs, run.ssp
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        powers = modp.powers_mod_p(vrs.s, P.d)
+        t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
+        msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, powers, t_s,
+                                     modp.matvec_mod_p(ssp.v, powers))
+        accepted = tsnark.verifier(vrs, ssp, run.proof, P)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same_s = int(msgs[1]) == int(vrs.s) and int(msgs[P.d]) == int(vrs.alpha)
+    print(f"phase release: setup's message schedule and the verifier under "
+          f"set_sync_debug_mode('error'): no host sync, verified={bool(accepted)}, "
+          f"s and alpha in the schedule={same_s}")
+    check(bool(accepted) and same_s, "release: the schedule or the verifier without host sync")
     for name in RELEASE_PATH:
         check(launches[name] > 0, f"release: kernel {name} was not launched on the main path")
     k6_plan = k6_division_launches(P.d) + 3  # the division and v^2

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1..K7) against their plain torch versions, and
+"""The port's CUDA kernels (K1..K10) against their plain torch versions, and
 the protocol on the GPU (one-pass and stage-wise) against the committed
 golden digests.
 
@@ -410,3 +410,177 @@ def test_k6_k7_prover_polys_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     for g, x in zip((w, v, h), want[1:]):
         _eq(g, x)
+
+
+# --------------------------------------------------------------------------
+# K8 (matvec_mod_p), K9 (powers_mod_p), K10 (carry_fold and its b-row form)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,kind", [
+    (1, 1, "max"), (3, 7, "max"), (5, 8, "max"), (2, 33, "max"), (21, 1 << 15, "max"),
+    (1, (1 << 15) + 1, "max"), (1, (1 << 21) + 8, "random"), (9, 40000, "random"),
+    (1027, 1 << 15, "random"), (1, 1 << 15, "random"), (4, 1, "random")])
+def test_k8_matvec_mod_p(cuda, rows, d, kind):
+    """K8 against its plain version: d below 8, above 32,768 and past 2^21
+    (the repaired fault), every entry p - 1, one row split over blocks, a
+    ragged last row group, setup's row length."""
+    rng = np.random.default_rng(rows * 7 + d)
+    if kind == "max":
+        v = torch.full((rows, d), PM1, dtype=torch.int64, device=cuda)
+        w = torch.full((d,), PM1, dtype=torch.int64, device=cuda)
+    else:
+        v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.int64)).to(cuda)
+        w = torch.from_numpy(rng.integers(0, PM1 + 1, size=d, dtype=np.int64)).to(cuda)
+    before = modp.LAUNCHES["matvec_mod_p"]
+    got = modp.matvec_mod_p(v, w)
+    assert modp.LAUNCHES["matvec_mod_p"] == before + 1
+    assert got.shape == (rows,) and got.dtype == torch.int64
+    _eq(got, modp.matvec_plain(v, w))
+    if rows >= 1026:  # batch dimensions
+        _eq(modp.matvec_mod_p(v[:1026].reshape(2, 513, d), w).reshape(-1), got[:1026])
+
+
+@pytest.mark.gpu
+def test_k8_refuses_a_v_it_cannot_read(cuda):
+    """No quiet copy: a strided or wrongly typed v or w raises."""
+    v = torch.zeros(8, 16, dtype=torch.int64, device=cuda)
+    w = torch.zeros(16, dtype=torch.int64, device=cuda)
+    for bad in (v[:, ::2], v.T, v.int()):
+        with pytest.raises(ValueError, match="v:"):
+            modp.matvec_mod_p(bad, w[: bad.shape[-1]])
+    for bad in (w.int(), torch.zeros(32, dtype=torch.int64, device=cuda)[::2], w[:8]):
+        with pytest.raises(ValueError, match="w:"):
+            modp.matvec_mod_p(v, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [0, 1, PM1, 123456789, 3141592653])
+def test_k9_powers_mod_p(cuda, s):
+    """K9 against its plain version: s in {0, 1, p - 1, random}, counts 1,
+    2, 3, 1,000 and 2^15 + 1, s as a 0-d and as a [1] tensor."""
+    for count in (1, 2, 3, 1000, (1 << 15) + 1):
+        for st in (torch.tensor(s, device=cuda), torch.tensor([s], device=cuda)):
+            before = modp.LAUNCHES["powers_mod_p"]
+            got = modp.powers_mod_p(st, count)
+            assert modp.LAUNCHES["powers_mod_p"] == before + 1
+            _eq(got, modp.powers_plain(st, count))
+    with pytest.raises(ValueError, match="s:"):
+        modp.powers_mod_p(torch.tensor([1, 2], device=cuda), 4)
+
+
+def _fold_ref(acc: np.ndarray, ndigits: int) -> np.ndarray:
+    """Python ints: sum_t acc[..., t] * 256^t mod 256^ndigits as digits."""
+    flat = acc.reshape(-1, acc.shape[-1])
+    out = np.zeros((flat.shape[0], ndigits), np.uint8)
+    for i, row in enumerate(flat):
+        x = sum(int(v) << (8 * t) for t, v in enumerate(row)) % (1 << (8 * ndigits))
+        out[i] = np.frombuffer(x.to_bytes(ndigits, "little"), np.uint8)
+    return out.reshape(*acc.shape[:-1], ndigits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random47", "int32", "ripple", "truncate", "pad", "wide",
+                                  "prover", "mesh"])
+def test_k10_carry_fold(cuda, case):
+    """K10 against its plain version (and Python ints): planes up to 2^47,
+    int32 planes, the worst ripple (256 then 87 positions of 255), K past
+    and short of ndigits, planes near 2^62 (past the plain version's
+    range), the prover's [5, 1471, 88] and the mesh's int32 sums."""
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+
+    rng = np.random.default_rng(len(case))
+    nd = 88
+    if case == "random47":
+        acc = rng.integers(0, 1 << 47, size=(300, 88), dtype=np.int64)
+    elif case == "int32":
+        acc = rng.integers(0, 1 << 31, size=(129, 88), dtype=np.int64).astype(np.int32)
+    elif case == "ripple":
+        acc = np.full((40, 88), 255, np.int64)
+        acc[:, 0] = 256  # row 0: 256, then 87 positions of 255
+        acc[np.arange(1, 40), np.arange(1, 40)] = 254  # row i: the ripple stops at i
+    elif case == "truncate":
+        acc = rng.integers(0, 1 << 40, size=(33, 100), dtype=np.int64)
+    elif case == "pad":
+        acc = rng.integers(0, 1 << 47, size=(33, 70), dtype=np.int64)
+    elif case == "wide":
+        acc = rng.integers(0, 1 << 62, size=(65, 88), dtype=np.int64)
+    elif case == "prover":
+        acc = rng.integers(0, 1 << 40, size=(5, 1471, 88), dtype=np.int64)
+    else:
+        acc = rng.integers(0, 4 * 255 + 1, size=(5, 33, 88), dtype=np.int64).astype(np.int32)
+    x = torch.from_numpy(acc).to(cuda)
+    before = dg.LAUNCHES["carry_fold"]
+    got = dg.carry_fold(x, nd)
+    assert dg.LAUNCHES["carry_fold"] == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (*acc.shape[:-1], nd)
+    if case != "wide":
+        _eq(got, dg.carry_fold_plain(x, nd))
+    if case in ("ripple", "truncate", "pad", "wide", "mesh"):
+        _eq(got, torch.from_numpy(_fold_ref(acc, nd)))
+
+
+@pytest.mark.gpu
+def test_k10_b_rows(cuda):
+    """K10's b-row form against its plain version on random nibble planes
+    at their bound, and on K4's own planes against encrypt_section's
+    plain path (K4's planes, then b_rows_plain on the CPU)."""
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+
+    rng = np.random.default_rng(10)
+    B = 1000
+    v_lo = torch.from_numpy(rng.integers(0, 1 << 31, size=(B, 88), dtype=np.int64).astype(np.int32))
+    v_hi = torch.from_numpy(rng.integers(0, 1 << 31, size=(B, 88), dtype=np.int64).astype(np.int32))
+    errs = torch.from_numpy(rng.integers(0, 256, size=(B, 88), dtype=np.uint8))
+    msgs = torch.from_numpy(rng.integers(0, 1 << 32, size=B, dtype=np.int64))
+    errs[:3] = 255
+    msgs[:3] = (1 << 32) - 1
+    before = dg.LAUNCHES["carry_fold"]
+    got = dg.carry_fold_b_rows(v_lo.to(cuda), v_hi.to(cuda), errs.to(cuda), msgs.to(cuda))
+    assert dg.LAUNCHES["carry_fold"] == before + 1
+    _eq(got, dg.b_rows_plain(v_lo, v_hi, errs, msgs))
+    with pytest.raises(ValueError, match="v_lo:"):
+        dg.carry_fold_b_rows(v_lo.to(cuda).long(), v_hi.to(cuda), errs.to(cuda), msgs.to(cuda))
+
+    P = Params(d=16, m=8, n=19)
+    key = sampling.PRGKey(SEED, cuda)
+    sk = torch.from_numpy(rng.integers(0, 256, size=(P.n, 88), dtype=np.uint8))
+    msgs, errs = msgs[:257], errs[:257]
+    got = tlwe.encrypt_section(key, 8, sk.to(cuda), msgs.to(cuda), errs.to(cuda), P, impl="fused")
+    cpu = tlwe.encrypt_section(sampling.PRGKey(SEED, "cpu"), 8, sk, msgs, errs, P, impl="fused")
+    _eq(got, cpu)
+
+
+@pytest.mark.gpu
+def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
+    """Setup's message schedule (K9, K8) and the verifier (K10 in its
+    decrypts, K9 and K8 at s) make no host sync up to the returned bool
+    tensor, after one warm call; the results equal the plain path's."""
+    P = Params(d=1 << 12, m=64, n=32)
+    key = sampling.PRGKey(SEED, cuda)
+    run = run_protocol(P, cuda, SEED, bytes([1] * 40))  # warm: the library, cached constants
+    assert run.verified
+    vrs, ssp = run.vrs, run.ssp
+    scalars = sampling.keystream_bytes(key, 0, 24).reshape(3, 8)
+    alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
+    counters = {**modp.LAUNCHES}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        powers = modp.powers_mod_p(s, P.d)
+        t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
+        msgs = tsnark.setup_messages(alpha, beta, powers, t_s, modp.matvec_mod_p(ssp.v, powers))
+        ok = tsnark.verifier(vrs, ssp, run.proof, P)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert modp.LAUNCHES["powers_mod_p"] - counters["powers_mod_p"] == 3
+    assert modp.LAUNCHES["matvec_mod_p"] - counters["matvec_mod_p"] == 4
+    assert bool(ok)
+    cpu_ssp = tssp.SSP(t=ssp.t.cpu(), v=ssp.v.cpu())
+    c_alpha, c_beta, c_s = alpha.cpu(), beta.cpu(), s.cpu()
+    c_pow = modp.powers_mod_p(c_s, P.d)
+    want = tsnark.setup_messages(c_alpha, c_beta, c_pow, modp.matvec_mod_p(cpu_ssp.t[None, :], c_pow)[0],
+                                 modp.matvec_mod_p(cpu_ssp.v, c_pow))
+    _eq(msgs, want)

@@ -256,7 +256,7 @@ def k4_model(key, off: int, sk: np.ndarray, count: int, n: int) -> torch.Tensor:
             band, _ = band_from_b_registers(nibble(sk[j0: j0 + draws], nib).astype(np.int64))
             v[nib] += a @ band
     assert v.max() < 1 << 31
-    return tef._enc_epilogue(torch.from_numpy(v[0]), torch.from_numpy(v[1]))
+    return dg.nibble_dot_planes(torch.from_numpy(v[0]), torch.from_numpy(v[1]))
 
 
 @pytest.mark.parametrize("off", [0, 8, 13, 16 * 7 + 8])
@@ -442,14 +442,14 @@ def test_encrypt_auto_takes_scan_past_k4_bound(monkeypatch, key, n):
     from c_lwe_snarks_tpu_torch.utils.params import Params
 
     reached = []
-    real = tef.encrypt_b_fused
+    real = tef.encrypt_b_planes  # K4's launching wrapper, which the fused path calls
 
     def k4(*args):
         reached.append(args[4])
         assert tef.fits_enc_bound(args[4]), "K4 reached past its bound"
         return real(*args)
 
-    monkeypatch.setattr(tef, "encrypt_b_fused", k4)
+    monkeypatch.setattr(tef, "encrypt_b_planes", k4)
     P = Params(d=16, m=8, n=n)
     gen = torch.Generator().manual_seed(n)
     sk = torch.randint(0, 256, (n, 88), generator=gen, dtype=torch.uint8)
