@@ -178,11 +178,11 @@ def ct_select_add(pred: torch.Tensor, acc: torch.Tensor, ct: torch.Tensor) -> to
 def smudge(
     ct: torch.Tensor, s_digits: torch.Tensor, sign_positive: torch.Tensor, params: Params
 ) -> torch.Tensor:
-    """b += ±(uniform log_smudging bits) * p; only the b coordinate changes."""
-    sp = dg.scalar_mul_digits(s_digits, dg.p_bytes(ct.device))
-    b = ct_b(ct)
-    b_new = torch.where(sign_positive, dg.add_digits(b, sp), dg.sub_digits(b, sp))
-    return torch.cat([ct_a(ct), b_new[..., None, :]], dim=-2)
+    """b += ±(uniform log_smudging bits) * p; only the b coordinate changes.
+
+    On a CUDA tensor one launch of K10's smudge form on a copy of ct
+    (``digits.smudge_rows``); on the CPU its plain version."""
+    return dg.smudge_rows(ct, s_digits, sign_positive)
 
 
 def eval_poly_multi_acc(
@@ -237,7 +237,8 @@ def eval_poly_multi(
     sum_i coeff_k[i] * ct_i mod 2^704.
 
     ``impl``: "fused" runs the a-part MAC in the fused keystream->MAC
-    kernel (K3) and the b-row MAC as one small exact matmul; "scan" runs
+    kernel (K3) and the b-row MAC as one small exact matmul, and folds
+    both in K10's MAC-plane form (``digits.fold_mac_planes``); "scan" runs
     the two-stage loop of ``eval_poly_multi_acc`` over tiles of ``tile``
     terms, zero-padding the degree to whole tiles (padded terms multiply
     keystream past the section by zero); "auto" is "fused": K3 takes any
@@ -259,10 +260,8 @@ def eval_poly_multi(
         key, section_offset, coeffs, params.n, params.ctr_ct)  # [4, k, n, 88]
     cb = u32_to_bytes(coeffs)  # [k, d, 4]
     acc_b = dg.u8_matmul(
-        cb.permute(1, 0, 2).reshape(d, 4 * k).T, b_rows[:, :DIGITS]
-    ).reshape(k, 4, DIGITS).permute(1, 0, 2)  # [4, k, 88]
-    planes = torch.cat([acc_a, acc_b[:, :, None, :]], dim=2)
-    return dg.carry_fold(dg.combine_shift_planes(planes))
+        cb.permute(2, 0, 1).reshape(4 * k, d), b_rows[:, :DIGITS]).reshape(4, k, DIGITS)
+    return dg.fold_mac_planes(acc_a, acc_b)  # one K10 launch on the card
 
 
 def eval_poly(

@@ -3,9 +3,9 @@
 Port of ``c_lwe_snarks_tpu/models/snark.py`` (GMNO18 designated-verifier
 zk-SNARK, reference src/snark.c):
 
-* setup: the message schedule (s^i, alpha s^i, beta t(s), beta v_i(s))
-  from the powers of s (K9 on the card) and one exact mod-p matvec (K8),
-  with no host read of s, then all 2d+m
+* setup: the message schedule (s^i, alpha s^i, beta t(s), beta v_i(s)):
+  s^i and alpha s^i from one K9 launch, t(s) and v_i(s) from K8, with no
+  host read of s, then all 2d+m
   encryptions as ONE fused keystream->encrypt launch (K4) from CTR_S —
   the four CRS sections are back to back in the stream.
 * prover: w, v = v_0 + w and h = (v^2 - 1)/t on the CRT-NTT engine, then
@@ -14,10 +14,11 @@ zk-SNARK, reference src/snark.c):
   ``tile`` it goes stage by stage instead, as the reference does: import
   Enc(beta t), evaluate the witness bits over the bv section, then (w, h)
   over the s section and (v, h) over the as section; the proof bytes are
-  the same.
+  the same.  The evaluations' epilogue and the five smudges are one K10
+  launch each.
 * verifier: 5 decrypts (their carry folds K10 on the card), t(s) and
-  v_0(s) (K9 then K8) and the mod-p relations, with no host sync up to the
-  returned bool tensor.
+  v_0(s) (one launch of K8's at-s form) and the mod-p relations, with no
+  host sync up to the returned bool tensor.
 
 Given a mesh (``parallel.mesh``), setup and the prover split their work
 over the ranks: v_i(s) over the rows of v, the encryptions and the five
@@ -131,16 +132,22 @@ def setup_errs(
 
 
 def setup_messages(
-    alpha: torch.Tensor, beta: torch.Tensor, powers: torch.Tensor, t_s: torch.Tensor,
-    v_s: torch.Tensor,
+    alpha: torch.Tensor, beta: torch.Tensor, s: torch.Tensor, t: torch.Tensor, v_at_s,
+    d: int, m: int,
 ) -> torch.Tensor:
-    """The 2d+m plaintexts in CRS term order: int64 words."""
-    return torch.cat([
-        powers,                                 # s^i          (CTR_S)
-        modp.mulmod_p(alpha, powers),           # alpha s^i    (CTR_AS)
-        modp.mulmod_p(beta, t_s).reshape(1),    # beta t(s)    (CTR_BT)
-        modp.mulmod_p(beta, v_s[1:]),           # beta v_i(s)  (CTR_BV)
-    ])
+    """The 2d+m plaintexts in CRS term order: int64 words [2d + m].
+
+    s^i (CTR_S) and alpha s^i (CTR_AS) are one launch of K9's messages form
+    into the head of the buffer; t(s) (K8) and v_i(s) = v_at_s(powers) read
+    its s^i slice; then beta t(s) (CTR_BT) and beta v_i(s) for i in [1, m)
+    (CTR_BV).  Nothing here reads alpha, beta or s on the host."""
+    msgs = torch.empty(2 * d + m, dtype=torch.int64, device=s.device)
+    modp.message_powers(s, alpha, d, out=msgs[: 2 * d])
+    powers = msgs[:d]
+    t_s = modp.matvec_mod_p(t[None, :], powers)[0]
+    msgs[2 * d] = modp.mulmod_p(beta, t_s)
+    msgs[2 * d + 1 :] = modp.mulmod_p(beta, v_at_s(powers)[1:])
+    return msgs
 
 
 # --------------------------------------------------------------------------
@@ -171,12 +178,11 @@ def setup(
     alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
     sk = tlwe.key_gen(ent_key, ent_offset + 24, params)
 
-    powers = modp.powers_mod_p(s, d)
-    t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
     impl = "auto" if tile is None else "scan"
     n_enc = 2 * d + 1 + (m - 1)
     if mesh is None:
-        msgs = setup_messages(alpha, beta, powers, t_s, modp.matvec_mod_p(ssp.v, powers))
+        msgs = setup_messages(
+            alpha, beta, s, ssp.t, lambda powers: modp.matvec_mod_p(ssp.v, powers), d, m)
         rows = tlwe.encrypt_section(
             crs_key, params.ctr_s, sk, msgs, setup_errs(ent_key, ent_offset, 0, n_enc, params),
             params, tile=tile, impl=impl)
@@ -184,8 +190,9 @@ def setup(
         _, rank, world = pmesh.axis(mesh)
         if (ssp.row0, ssp.row0 + ssp.v.shape[0]) != chunk_bounds(m, rank, world):
             raise ValueError("setup with a mesh takes the rank's rows of v (random_ssp_sharded)")
-        msgs = setup_messages(alpha, beta, powers, t_s,
-                              pmesh.v_at_s_sharded(ssp.v, powers, mesh, m))
+        msgs = setup_messages(
+            alpha, beta, s, ssp.t, lambda powers: pmesh.v_at_s_sharded(ssp.v, powers, mesh, m),
+            d, m)
         lo, hi = chunk_bounds(n_enc, rank, world)
         rows = pmesh.encrypt_section_sharded(
             crs_key, params.ctr_s, sk, msgs, setup_errs(ent_key, ent_offset, lo, hi, params),
@@ -362,21 +369,26 @@ def prover(
     return smudge_proof(ent_key, ent_offset, evals, params)
 
 
+# the evaluation each smudging draw lands on, in draw order h, hat_h, hat_v,
+# v_w, v_w (evaluations in the order v_w, h, hat_v, hat_h, b_w)
+SMUDGE_TARGETS = (1, 3, 2, 0, 0)
+
+
 def smudge_proof(ent_key: sampling.PRGKey, ent_offset: int, evals, params: Params) -> Proof:
     """The proof from the five evaluations (v_w, h, hat_v, hat_h, b_w):
     smudging in the reference order h, hat_h, hat_v, v_w, v_w (v_w twice,
-    b_w never — src/snark.c:184-189), drawn after delta."""
-    v_w, h_ct, hat_v, hat_h, b_w = evals
-    sm = sampling.sample_digit_rows(
+    b_w never — src/snark.c:184-189), drawn after delta.
+
+    evals: uint8 [5, n+1, 88], whose b rows are smudged in place (a tuple
+    of five is stacked first); on the card all five draws are one launch
+    of K10's smudge form, the signs read on the device."""
+    if not isinstance(evals, torch.Tensor):
+        evals = torch.stack(list(evals))
+    draws = sampling.sample_digit_rows(
         ent_key, ent_offset + 8, 5, draw_bytes=smudge_entropy_bytes(params),
-        ndigits=smudge_entropy_bytes(params))
-    s_digits = tlwe.pad_digits(sm[:, :-1])  # [5, 88]
-    signs = (sm[:, -1] & 1) == 0  # low bit 0 -> positive
-    h_ct = tlwe.smudge(h_ct, s_digits[0], signs[0], params)
-    hat_h = tlwe.smudge(hat_h, s_digits[1], signs[1], params)
-    hat_v = tlwe.smudge(hat_v, s_digits[2], signs[2], params)
-    v_w = tlwe.smudge(v_w, s_digits[3], signs[3], params)
-    v_w = tlwe.smudge(v_w, s_digits[4], signs[4], params)
+        ndigits=smudge_entropy_bytes(params))  # 80 digit bytes, then the sign byte
+    dg.smudge_draws(evals, draws, SMUDGE_TARGETS)
+    v_w, h_ct, hat_v, hat_h, b_w = evals
     return Proof(h=h_ct, hat_h=hat_h, hat_v=hat_v, v_w=v_w, b_w=b_w)
 
 
@@ -415,8 +427,8 @@ def verifier(vrs: VRS, ssp: tssp.SSP, proof: Proof, params: Params) -> torch.Ten
         raise ValueError("the verifier needs v_0; this SSP holds rows from row0 on")
     dec = tlwe.decrypt(proof.stack(), vrs.sk, params)  # [5]
     h_s, hath_s, hatv_s, w_s, b_s = (dec[i] for i in range(5))
-    t_s = modp.poly_eval_mod_p(ssp.t, vrs.s)
-    v_s = modp.addmod_p(modp.poly_eval_mod_p(ssp.v[0], vrs.s), w_s)
+    t_s, v0_s = modp.poly_eval_mod_p(torch.stack([ssp.t, ssp.v[0]]), vrs.s)  # one K8 launch
+    v_s = modp.addmod_p(v0_s, w_s)
     eq_pke1 = modp.mulmod_p(h_s, vrs.alpha) == hath_s
     eq_pke2 = modp.mulmod_p(v_s, vrs.alpha) == hatv_s
     lhs = modp.submod_p(

@@ -3,16 +3,21 @@
 Port of ``c_lwe_snarks_tpu/ops/digits.py``.  A mod-2^704 integer is a row
 of 88 little-endian uint8 digits; a batch of them is a 2D tensor.
 Accumulator planes are int64 (weight 256^k at position k), so the int32
-headroom arguments of the JAX package become plain bounds below 2^47.
+headroom arguments of the JAX package become the bound of int64: every
+fold here is exact for any non-negative int64 plane.
 
 Byte contractions run as float64 matrix products, exact while every
 partial sum is < 2^53 (K * 255^2 < 2^53 for any contraction length K
 here).  The unsigned operands need none of the MXU's int8 recentring.
 
-On a CUDA tensor the carry fold is K10 (``csrc/digits.cu``), also in its
-b-row form (``carry_fold_b_rows``, setup's b = <sk, a> + p * e + m from
-K4's planes); ``LAUNCHES`` counts its launches.  The CPU takes the plain
-versions, ``carry_fold_plain`` and ``b_rows_plain``.
+On a CUDA tensor the carry fold is K10 (``csrc/digits.cu``), one launch in
+each of its four forms: the planes form (``carry_fold``), the b-row form
+(``carry_fold_b_rows``, setup's b = <sk, a> + p * e + m from K4's planes),
+the MAC-plane form (``fold_mac_planes``, the epilogue of the prover's
+evaluations) and the smudge form (``smudge_draws`` and ``smudge_rows``,
+b += +-p * s in place); ``LAUNCHES["carry_fold"]`` counts every form.  The
+CPU takes the plain versions, ``carry_fold_plain``, ``b_rows_plain``,
+``fold_mac_planes_plain``, ``smudge_draws_plain`` and ``smudge_plain``.
 """
 
 from __future__ import annotations
@@ -66,10 +71,10 @@ def partial_fold(v: torch.Tensor) -> torch.Tensor:
 
 
 def carry_fold_plain(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
-    """K10's plain version: normalize non-negative planes (each < 2^47).
+    """K10's plain version: normalize non-negative planes (any int64).
 
     Returns the value mod 256^ndigits as uint8 [..., ndigits] (planes
-    [..., K] with K < ndigits are zero-extended first).  Six shift-add
+    [..., K] with K < ndigits are zero-extended first).  Eight shift-add
     passes bring every position to <= 256; the remaining one-bit ripple is
     resolved by carry lookahead: position t receives a carry iff the
     nearest position below it that is not 255 holds 256.
@@ -77,7 +82,8 @@ def carry_fold_plain(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
     x = acc.to(torch.int64)
     if x.shape[-1] < ndigits:
         x = F.pad(x, (0, ndigits - x.shape[-1]))
-    for _ in range(6):  # 2^47 -> 2^39 -> 2^31 -> 2^23 -> 2^15 -> 2^7+255 -> 256
+    # 2^63 -> 2^55 -> 2^47 -> 2^39 -> 2^31 -> 2^23 -> 2^15 -> 2^7 + 255 -> 256
+    for _ in range(8):
         x = partial_fold(x)
     iota = torch.arange(x.shape[-1], device=x.device).expand_as(x)
     none = torch.full_like(x, -1)
@@ -88,13 +94,24 @@ def carry_fold_plain(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
     return ((x + carry_in) & 255)[..., :ndigits].to(torch.uint8)
 
 
+def _check(name: str, t: torch.Tensor, dtype, shape, device, pair: bool = False) -> None:
+    """Raise unless t is contiguous of this dtype, shape and device, and,
+    with pair, starts where two of its entries load together."""
+    try:
+        _build.check_tensor(t, dtype, shape, device)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if pair and t.data_ptr() % (2 * t.element_size()):
+        raise ValueError(f"{name}: expected a start aligned to {2 * t.element_size()} bytes")
+
+
 def carry_fold(acc: torch.Tensor, ndigits: int = DIGITS) -> torch.Tensor:
     """Normalize non-negative planes [..., K] to uint8 digits [..., ndigits]:
     the value sum_t acc[..., t] * 256^t mod 256^ndigits.
 
-    K10: on a CUDA tensor, one launch of ``csrc/digits.cu`` (int64 or int32
-    planes, any non-negative value); on the CPU, ``carry_fold_plain``
-    (planes < 2^47)."""
+    K10's planes form: on a CUDA tensor, one launch of ``csrc/digits.cu``
+    (int64 or int32 planes, any non-negative value); on the CPU,
+    ``carry_fold_plain``."""
     if acc.device.type == "cpu":
         return carry_fold_plain(acc, ndigits)
     k = acc.shape[-1]
@@ -123,26 +140,136 @@ def carry_fold_b_rows(v_lo: torch.Tensor, v_hi: torch.Tensor, errs: torch.Tensor
 
     v_lo, v_hi: K4's nibble dot planes [B, 88] (int32 from the kernel;
     ``eval_fused.encrypt_b_planes``); errs: uint8 [B, 88]; msgs: int64
-    words [B].  K10's b-row form: on a CUDA tensor one launch that stages
-    each position's v_lo + 16 v_hi and error byte, adds p * e (p's four
-    bytes) and m's bytes as it walks the row's carry; inputs must be
-    contiguous there, of these types and shapes (else ValueError).  On the
-    CPU, ``b_rows_plain``."""
+    words [B].  K10's b-row form: on a CUDA tensor one launch that reads
+    each position's v_lo + 16 v_hi and error byte once and adds p * e
+    (p's four bytes) and m's bytes in registers; inputs must be
+    contiguous there, of these types and shapes, and the planes and errors
+    start on a whole pair of entries (else ValueError).  On the CPU,
+    ``b_rows_plain``."""
     if v_lo.device.type == "cpu":
         return b_rows_plain(v_lo, v_hi, errs, msgs)
     rows = msgs.shape[0]
     for name, t, dtype, shape in (("v_lo", v_lo, torch.int32, (rows, DIGITS)),
                                   ("v_hi", v_hi, torch.int32, (rows, DIGITS)),
-                                  ("errs", errs, torch.uint8, (rows, DIGITS)),
-                                  ("msgs", msgs, torch.int64, (rows,))):
-        try:
-            _build.check_tensor(t, dtype, shape, v_lo.device)
-        except ValueError as e:
-            raise ValueError(f"{name}: {e}") from None
+                                  ("errs", errs, torch.uint8, (rows, DIGITS))):
+        _check(name, t, dtype, shape, v_lo.device, pair=True)
+    _check("msgs", msgs, torch.int64, (rows,), v_lo.device)
     out = torch.empty(rows, DIGITS, dtype=torch.uint8, device=v_lo.device)
     if rows:
-        _build.launch("cls_carry_fold_b_rows", v_lo, v_hi, errs, msgs, rows, DIGITS, out)
+        _build.launch("cls_carry_fold_b_rows", v_lo, v_hi, errs, msgs, rows, out)
         LAUNCHES["carry_fold"] += 1
+    return out
+
+
+def fold_mac_planes_plain(acc_a: torch.Tensor, acc_b: torch.Tensor) -> torch.Tensor:
+    """The MAC-plane form's plain version: the b-row MAC appended as
+    ciphertext row n, the planes combined at their shifts, then the carry
+    fold (the epilogue of the JAX package's fused evaluation)."""
+    planes = torch.cat([acc_a, acc_b[:, :, None, :]], dim=2)
+    return carry_fold_plain(combine_shift_planes(planes))
+
+
+def fold_mac_planes(acc_a: torch.Tensor, acc_b: torch.Tensor) -> torch.Tensor:
+    """k evaluations' digits uint8 [k, n+1, 88] from their MAC planes:
+    sum_c plane_c * 256^c mod 2^704 at every (evaluation, coordinate).
+
+    acc_a: int64 [4, k, n, 88], K3's a-part planes
+    (``eval_fused.eval_mac_planes``); acc_b: int64 [4, k, 88], the b-row
+    MAC, coordinate n; both non-negative.  K10's MAC-plane form: on a CUDA
+    tensor one launch that reads both as they are (no concatenation) and
+    splits each entry into its low byte and high part as
+    ``combine_shift_planes`` does, exact for every non-negative int64;
+    both must be contiguous int64 there, starting 16-byte aligned (else
+    ValueError).  On the CPU, ``fold_mac_planes_plain``."""
+    if acc_a.device.type == "cpu":
+        return fold_mac_planes_plain(acc_a, acc_b)
+    if acc_a.dim() != 4 or acc_a.shape[0] != 4 or acc_a.shape[-1] != DIGITS:
+        raise ValueError(f"acc_a: expected int64 [4, k, n, {DIGITS}], got {tuple(acc_a.shape)}")
+    _, k, n, _ = acc_a.shape
+    _check("acc_a", acc_a, torch.int64, (4, k, n, DIGITS), acc_a.device, pair=True)
+    _check("acc_b", acc_b, torch.int64, (4, k, DIGITS), acc_a.device, pair=True)
+    out = torch.empty(k, n + 1, DIGITS, dtype=torch.uint8, device=acc_a.device)
+    if k:
+        _build.launch("cls_carry_fold_mac", acc_a, acc_b, k, n, out)
+        LAUNCHES["carry_fold"] += 1
+    return out
+
+
+def smudge_plain(b: torch.Tensor, s_digits: torch.Tensor,
+                 sign_positive: torch.Tensor) -> torch.Tensor:
+    """One smudge of b digit rows [..., 88]: b +- s * p mod 2^704
+    (s_digits uint8 [88]; the JAX package's smudge on the b coordinate)."""
+    sp = carry_fold_plain(combine_shift_planes(
+        s_digits.to(torch.int64)[None] * p_bytes(b.device).reshape(4, 1)))
+    plus = carry_fold_plain(b.to(torch.int64) + sp.to(torch.int64))
+    minus = b.to(torch.int64) + (255 - sp.to(torch.int64))
+    minus[..., 0] += 1
+    return torch.where(sign_positive, plus, carry_fold_plain(minus))
+
+
+def smudge_draws_plain(evals: torch.Tensor, draws: torch.Tensor, targets) -> torch.Tensor:
+    """The smudge form's plain version: one ``smudge_plain`` a draw, in
+    draw order, on the b row of evaluation targets[i]; in place."""
+    s_digits = F.pad(draws[:, :-1], (0, DIGITS - (draws.shape[1] - 1)))
+    positive = (draws[:, -1] & 1) == 0
+    for i, e in enumerate(targets):
+        evals[e, -1] = smudge_plain(evals[e, -1], s_digits[i], positive[i])
+    return evals
+
+
+def _smudge_launch(b: torch.Tensor, rows: int, s: torch.Tensor, s_stride: int, s_len: int,
+                   sign: torch.Tensor, sign_off: int, sign_stride: int, pos_bit: int,
+                   draws: int, targets: int) -> None:
+    row_bytes = b.shape[-2] * DIGITS  # a ciphertext: n + 1 rows of 88 digits
+    if rows:
+        _build.launch("cls_carry_fold_smudge", b, row_bytes - DIGITS, row_bytes, rows,
+                      s, s_stride, s_len, sign, sign_off, sign_stride, pos_bit, draws, targets)
+        LAUNCHES["carry_fold"] += 1
+
+
+def smudge_draws(evals: torch.Tensor, draws: torch.Tensor, targets) -> torch.Tensor:
+    """The prover's smudging, b += sigma_i * p * s_i mod 2^704 for each
+    draw i on the b row of evaluation targets[i]; rewrites evals in place
+    and returns it.
+
+    evals: uint8 [E, n+1, 88] (E <= 15); draws: uint8 [S, L + 1] (S <= 8),
+    draw i's L <= 88 digit bytes and its sign byte (low bit 0: positive).
+    K10's smudge form: on a CUDA tensor one launch for every draw (a row's
+    draws in one walk), the signs read on the device; both must be
+    contiguous there (else ValueError).  On the CPU, ``smudge_draws_plain``."""
+    if evals.device.type == "cpu":
+        return smudge_draws_plain(evals, draws, targets)
+    count, length = draws.shape
+    if not (count == len(targets) <= 8 and 1 <= length <= DIGITS + 1
+            and all(0 <= e < min(evals.shape[0], 15) for e in targets)):
+        raise ValueError(f"draws {tuple(draws.shape)} and targets {targets}: at most 8 draws of "
+                         f"<= {DIGITS} digits and a sign, each on one of the first 15 evaluations")
+    _check("evals", evals, torch.uint8, (evals.shape[0], evals.shape[1], DIGITS), evals.device)
+    _check("draws", draws, torch.uint8, (count, length), evals.device)
+    packed = sum(e << (4 * i) for i, e in enumerate(targets))
+    _smudge_launch(evals, max(targets, default=-1) + 1, draws, length, length - 1,
+                   draws, length - 1, length, 0, count, packed)
+    return evals
+
+
+def smudge_rows(ct: torch.Tensor, s_digits: torch.Tensor,
+                sign_positive: torch.Tensor) -> torch.Tensor:
+    """Ciphertexts [..., n+1, 88] with every b row smudged by one draw:
+    b +- s * p mod 2^704 (s_digits uint8 [88], sign_positive a bool
+    tensor).  On a CUDA tensor K10's smudge form, one launch on a copy
+    (the signs read on the device); s_digits and sign_positive must be
+    contiguous there (else ValueError).  On the CPU, ``smudge_plain``."""
+    if ct.device.type == "cpu":
+        b_new = smudge_plain(ct[..., -1, :], s_digits, sign_positive)
+        return torch.cat([ct[..., :-1, :], b_new[..., None, :]], dim=-2)
+    _check("s_digits", s_digits, torch.uint8, (DIGITS,), ct.device)
+    _check("sign_positive", sign_positive, torch.bool, (), ct.device)
+    out = ct.contiguous().clone()
+    if out.shape[-1] != DIGITS or out.dtype != torch.uint8 or out.dim() < 2:
+        raise ValueError(f"ct: expected uint8 [..., n+1, {DIGITS}], got {ct.dtype} {tuple(ct.shape)}")
+    rows = out.numel() // (out.shape[-2] * DIGITS)
+    _smudge_launch(out, rows, s_digits, DIGITS, DIGITS, sign_positive.view(torch.uint8), 0, 0,
+                   1, 1, 15)
     return out
 
 

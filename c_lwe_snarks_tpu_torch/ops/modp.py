@@ -8,14 +8,16 @@ intermediate reaches 2^63, and every result is the canonical residue in
 (including ``add_u32_mod_p``'s double-wrap window, which exact int64
 arithmetic covers by construction).
 
-On a CUDA tensor three functions run hand-written kernels, and
+On a CUDA tensor these functions run hand-written kernels, and
 ``LAUNCHES`` counts their launches: the gated row-sum is K7
-(``csrc/rowsum.cu``), ``matvec_mod_p`` K8 and ``powers_mod_p`` K9
-(``csrc/modp.cu``).  Their plain versions, which the CPU takes, are
-``gated_rowsum_plain`` and ``matvec_plain`` (float64 matrix products:
-torch refuses integer ``mm`` on CUDA, and a float64 sum of integers is
-exact while every partial sum stays below 2^53, which the operand splits
-here guarantee) and ``powers_plain`` (doubling).
+(``csrc/rowsum.cu``); ``matvec_mod_p`` and ``poly_eval_mod_p`` are K8, the
+latter in its at-s form (the powers of s made in the kernel); and
+``powers_mod_p`` and ``message_powers`` are K9 (``csrc/modp.cu``).  Their
+plain versions, which the CPU takes, are ``gated_rowsum_plain`` and
+``matvec_plain`` (float64 matrix products: torch refuses integer ``mm`` on
+CUDA, and a float64 sum of integers is exact while every partial sum stays
+below 2^53, which the operand splits here guarantee), ``poly_eval_plain``,
+``powers_plain`` (doubling) and ``message_powers_plain``.
 """
 
 from __future__ import annotations
@@ -127,6 +129,12 @@ def powers_plain(s: torch.Tensor, count: int) -> torch.Tensor:
     return out[:count]
 
 
+def _check_scalar(name: str, x: torch.Tensor, device) -> None:
+    if x.dtype != torch.int64 or x.numel() != 1 or x.device != device:
+        raise ValueError(f"{name}: expected one int64 entry on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
 def powers_mod_p(s: torch.Tensor, count: int) -> torch.Tensor:
     """[1, s, s^2, ..., s^(count-1)] mod p: int64 [count].
 
@@ -136,18 +144,61 @@ def powers_mod_p(s: torch.Tensor, count: int) -> torch.Tensor:
     assert count >= 1
     if s.device.type == "cpu":
         return powers_plain(s, count)
-    if s.dtype != torch.int64 or s.numel() != 1:
-        raise ValueError(f"s: expected one int64 entry, got {s.dtype} {tuple(s.shape)}")
+    _check_scalar("s", s, s.device)
     out = torch.empty(count, dtype=torch.int64, device=s.device)
-    _build.launch("cls_powers_mod_p", s.reshape(1), count, out)
+    _build.launch("cls_powers_mod_p", s.reshape(1), s.reshape(1), 0, count, out)
     LAUNCHES["powers_mod_p"] += 1
     return out
 
 
+def message_powers_plain(s: torch.Tensor, alpha: torch.Tensor, count: int) -> torch.Tensor:
+    """K9's messages form, plain: the powers, then alpha times each."""
+    powers = powers_plain(s, count)
+    return torch.cat([powers, mulmod_p(alpha, powers)])
+
+
+def message_powers(s: torch.Tensor, alpha: torch.Tensor, count: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """[s^0, ..., s^(count-1), alpha s^0, ..., alpha s^(count-1)] mod p:
+    int64 [2 count], setup's first 2d plaintexts (CTR_S, then CTR_AS).
+
+    s, alpha: one-element int64 tensors < p; out: where to write (a
+    contiguous int64 [2 count], e.g. the head of the message buffer).  K9's
+    messages form: on a CUDA tensor one launch that reads s and alpha on
+    the device; on the CPU, ``message_powers_plain``."""
+    assert count >= 1
+    if s.device.type == "cpu":
+        want = message_powers_plain(s, alpha, count)
+        return want if out is None else out.copy_(want)
+    _check_scalar("s", s, s.device)
+    _check_scalar("alpha", alpha, s.device)
+    if out is None:
+        out = torch.empty(2 * count, dtype=torch.int64, device=s.device)
+    elif out.dtype != torch.int64 or out.shape != (2 * count,) or not out.is_contiguous() \
+            or out.device != s.device:
+        raise ValueError(f"out: expected a contiguous int64 [{2 * count}] on {s.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    _build.launch("cls_powers_mod_p", s.reshape(1), alpha.reshape(1), 1, count, out)
+    LAUNCHES["powers_mod_p"] += 1
+    return out
+
+
+def poly_eval_plain(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """K8's at-s form, plain: the powers of s, then the matvec."""
+    return matvec_plain(coeffs, powers_plain(s, coeffs.shape[-1]))
+
+
 def poly_eval_mod_p(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Evaluate polynomial(s) at scalar s: coeffs [..., d] -> [...]; on a
-    CUDA tensor K9 (the powers) then K8 (each polynomial a row)."""
-    return matvec_mod_p(coeffs, powers_mod_p(s, coeffs.shape[-1]))
+    """Evaluate polynomial(s) at scalar s: coeffs [..., d] -> [...] mod p.
+
+    K8's at-s form: on a CUDA tensor one launch, each polynomial a row and
+    w = s^i made in the block from s read on the device (no powers
+    buffer); coeffs must be contiguous int64 there (else ValueError).  On
+    the CPU, ``poly_eval_plain``."""
+    if coeffs.device.type == "cpu":
+        return poly_eval_plain(coeffs, s)
+    _check_scalar("s", s, coeffs.device)
+    return _matvec_launch("cls_matvec_at_s_mod_p", coeffs, s.reshape(1))
 
 
 def gated_rowsum_plain(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -237,12 +288,18 @@ def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     d = v.shape[-1]
     if v.device.type == "cpu":
         return matvec_plain(v, w)
-    if v.dtype != torch.int64 or not v.is_contiguous() or d >= MATVEC_MAX_D:
-        raise ValueError(f"v: expected a contiguous int64 [..., m, d < 2^37], got {v.dtype} "
-                         f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
     if w.dtype != torch.int64 or w.shape != (d,) or w.device != v.device or not w.is_contiguous():
         raise ValueError(f"w: expected a contiguous int64 [{d}] on {v.device}, got {w.dtype} "
                          f"{tuple(w.shape)} on {w.device}")
+    return _matvec_launch("cls_matvec_mod_p", v, w)
+
+
+def _matvec_launch(name: str, v: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
+    """One K8 launch over the rows of v (w or s as the operand)."""
+    d = v.shape[-1]
+    if v.dtype != torch.int64 or not v.is_contiguous() or d >= MATVEC_MAX_D:
+        raise ValueError(f"v: expected a contiguous int64 [..., m, d < 2^37], got {v.dtype} "
+                         f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
     rows = v.numel() // d if d else 0
     if rows == 0 or d == 0:
         return torch.zeros(v.shape[:-1], dtype=torch.int64, device=v.device)
@@ -251,6 +308,6 @@ def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     groups = -(-rows // MATVEC_ROWS)
     partial = torch.empty(rows * splits if splits > 1 else 0, dtype=torch.int64, device=v.device)
     done = torch.empty(groups if splits > 1 else 0, dtype=torch.int32, device=v.device)
-    _build.launch("cls_matvec_mod_p", v, w, rows, d, splits, partial, done, out)
+    _build.launch(name, v, operand, rows, d, splits, partial, done, out)
     LAUNCHES["matvec_mod_p"] += 1
     return out

@@ -26,13 +26,16 @@ non-zero, and only a full pass prints the final JSON line):
    also at k = 1 beside k = 5; K1 also at a scan tile's size beside
    setup's error draws; one ``torch.profiler`` pass over random_ssp at
    release parameters and over K1's and K5's launches (device-side
-   durations); K6 and K7 at the prover's shapes; K8 (the mod-p matvec), K9
-   (the powers of s) and K10 (the carry fold, and its b-row form) at their
-   edges (d < 8 and past 2^21, s = 0, 1, p - 1, the worst carry ripple,
-   planes near 2^62 against Python ints) and at setup's, the verifier's
-   and the prover's shapes, timed and device-side; the release prover,
-   setup and verifier under the profiler (tools/profile_prover.py,
-   tools/profile_stage.py);
+   durations); K6 and K7 at the prover's shapes; K8 (the mod-p matvec,
+   and its at-s form), K9 (the powers of s, and its messages form) and K10
+   (the carry fold in its planes, b-row, MAC-plane and smudge forms) at
+   their edges (d < 8 and past 2^21, s = 0, 1, p - 1, the worst carry
+   ripple and ripples stopped at every position, planes at 2^63 - 1, 1,
+   31, 33 and 7,355 rows, every sign pattern of the smudging, s = 0 and
+   2^640 - 1, against Python ints) and at setup's, the verifier's and the
+   prover's shapes, timed and device-side; the host's time to issue one
+   launch; the release prover, setup and verifier under the profiler
+   (tools/profile_prover.py, tools/profile_stage.py);
 3. run the protocol at the tiny and toy parameters on the card and hold
    the SSP/CRS/VRS/proof sha256 digests against the committed golden
    file (made from the JAX package); stream the toy SSP to a file and back;
@@ -40,8 +43,10 @@ non-zero, and only a full pass prints the final JSON line):
    entry point with every launch counter reset just before, check that
    the verifier accepts, that a tampered proof is rejected, that two CRS
    terms decrypt to 1 and alpha, and that every kernel of the path ran
-   (K1..K4, K6..K10); run setup's message schedule and the verifier once
-   more under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   (K1..K4, K6..K10) as often as planned (K8 3, K9 1, K10 5); run setup's
+   message schedule, the prover's evaluations and smudging and the
+   verifier once more under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host sync);
    then the same run five more times for the spread of the stage walls;
 5. walk the stage-wise path at release parameters with the counters reset
    again: write CRS, VRS and proof to files, read them back, probe the
@@ -102,12 +107,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused", "ntt",
                 "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold")
 STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt",
-                  "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold")
+                  "gated_rowsum_p", "matvec_mod_p", "carry_fold")
 # the sharded phase's parts: random_ssp's tiles reach K7; the 4-step NTT
 # needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
 SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
                 "gated_rowsum_p", "matvec_mod_p", "carry_fold")
 SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
+# launches of one release run, by design: K8 t(s) and v at setup and the
+# verifier's two rows in one; K9 setup's messages; K10 setup's b-rows, the
+# prover's epilogue and its five smudges, the verifier's two decrypt folds
+RELEASE_LAUNCHES = {"matvec_mod_p": 3, "powers_mod_p": 1, "carry_fold": 5}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.  The
 # sheet gives no integer ALU rate: 67 TFLOP/s of float32 is 2 flops on 128
@@ -153,15 +162,22 @@ BUTTERFLY_OPS = 16
 POINTWISE_OPS = 8 + 9
 CRT_OPS = 40
 # K8 (modp.cu), an entry: the 32 x 32 -> 64 bit product (2), its fold to
-# < 2^35 (one wide multiply-add, 2), the 64-bit add (2); K9, a mulmod:
-# the product (2) and aes_core.cuh's fold64_mod_p (7); K10 (digits.cu), a
-# position: the 64-bit add of the carry (2), the digit's mask and the
-# carry's shift (2), and in the b-row form lo + 16 hi (3), four byte
-# products of p and the errors (8) and the message byte (3).
+# < 2^35 (one wide multiply-add, 2), the 64-bit add (2); its at-s form adds
+# one mulmod a column for w.  K9, a mulmod: the product (2) and
+# aes_core.cuh's fold64_mod_p (7).  K10 (digits.cu), a position: the 64-bit
+# add of the carry (2), the digit's mask and the carry's shift (2); in the
+# b-row form lo + 16 hi (3), four byte products of p and the errors (8)
+# and the message byte (3); in the MAC-plane form, for each of the four
+# planes, the low byte (1), the high part (2) and two 64-bit adds (4); in
+# the smudge form, for each draw on the row, the four byte products of p
+# (8), the sign's select and the negative's constant (3) and the add (2).
+# The rounds' shuffles and ballots are a few operations a lane, not counted.
 MATVEC_OPS = 6
 MULMOD_OPS = 2 + 7
 FOLD_POS_OPS = 4
 BROW_POS_OPS = 4 + 3 + 8 + 3
+MAC_POS_OPS = 4 + 4 * (1 + 2 + 4)
+SMUDGE_DRAW_OPS = 8 + 3 + 2
 
 
 def check(cond, msg: str) -> None:
@@ -176,11 +192,22 @@ def max_abs_err(a, b) -> int:
     return int((a.to(b.device).long() - b.long()).abs().max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of reps calls of fn, between two CUDA events."""
+QUEUE_CYCLES = 50_000_000  # ~25-28 ms of the card's clock: the host queues the timed launches meanwhile
+
+
+def cuda_ms(fn, reps: int, queued: bool = True) -> float:
+    """Mean milliseconds per call of reps calls of fn, between two CUDA events.
+
+    queued: the stream first runs a wait kernel (torch.cuda._sleep), so the
+    host has queued every launch before the start event runs and the events
+    hold the kernels back to back, not the host's time to issue them (a
+    wrapper takes ~25-40 us to issue a launch: host_issue).  Without it, a
+    kernel shorter than its issue is timed at the host's pace."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -427,12 +454,36 @@ def powers_ops(count: int) -> int:
     return MULMOD_OPS * sum(i.bit_length() + i.bit_count() for i in range(count))
 
 
+def at_s_ops(rows: int, d: int) -> int:
+    """K8's at-s form: the matvec's entries and one mulmod a column for w
+    (each thread's start by square and multiply is the design's, not counted)."""
+    return MATVEC_OPS * rows * d + MULMOD_OPS * d
+
+
+def smudge_case(P, ent_key):
+    """The prover's smudging at release: five evaluations [5, n+1, 88] and
+    the five draws as smudge_proof samples them."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+    from c_lwe_snarks_tpu_torch.ops import sampling
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    evals = torch.randint(0, 256, (5, P.n + 1, 88), generator=gen, device=DEVICE, dtype=torch.uint8)
+    off = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P) + 8
+    width = tsnark.smudge_entropy_bytes(P)
+    draws = sampling.sample_digit_rows(ent_key, off, 5, draw_bytes=width, ndigits=width)
+    return evals, draws
+
+
 def schedule_cases(P, crs_key, ent_key) -> dict:
     """K8's, K9's and K10's cases at the release main path's shapes (the
-    case format of phase_kernels; the last case of each is reported):
-    setup's v, t and powers of s from a release random_ssp, setup's b-rows
-    from K4's planes with the release errors and messages, and the
-    prover's evaluation planes."""
+    case format of phase_kernels; the last case of each is the main path's
+    largest call and is reported): setup's v, t and powers of s from a
+    release random_ssp, setup's b-rows from K4's planes with the release
+    errors and messages, the verifier's rows at s, the prover's MAC planes
+    and smudging, and the stage-wise and sharded paths' planes."""
     import torch
 
     from c_lwe_snarks_tpu_torch.models import lwe as tlwe
@@ -448,35 +499,163 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
     alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
     powers = modp.powers_mod_p(s, d)
     t_row = ssp.t[None, :]
+    rows2 = torch.stack([ssp.t, ssp.v[0]])
     n_enc = 2 * d + m
-    msgs = tsnark.setup_messages(alpha, beta, powers, modp.matvec_mod_p(t_row, powers)[0],
-                                 modp.matvec_mod_p(ssp.v, powers))
+    msgs = tsnark.setup_messages(
+        alpha, beta, s, ssp.t, lambda pw: modp.matvec_mod_p(ssp.v, pw), d, m)
     errs = tsnark.setup_errs(ent_key, off_setup, 0, n_enc, P)
     sk = tlwe.key_gen(ent_key, off_setup + 24, P)
     v_lo, v_hi = eval_fused.encrypt_b_planes(crs_key, P.ctr_s, sk, n_enc, n, P.ctr_ct)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     planes = torch.randint(0, 1 << 26, (5, n + 1, 88), generator=gen, device=DEVICE)
+    acc_a = torch.randint(0, 1 << 40, (4, 5, n, 88), generator=gen, device=DEVICE)
+    acc_b = torch.randint(0, 1 << 40, (4, 5, 88), generator=gen, device=DEVICE)
+    evals, draws = smudge_case(P, ent_key)
     return {
         "matvec_mod_p": [
-            (f"t(s) and the verifier's rows: [1, {d}]", 20,
+            (f"t(s) at setup: [1, {d}]", 20,
              lambda: modp.matvec_mod_p(t_row, powers), lambda: modp.matvec_plain(t_row, powers),
              bound(8 * (2 * d + 1), MATVEC_OPS * d)),
+            (f"the at-s form, the verifier's t(s) and v_0(s): [2, {d}] (launch-bound)", 20,
+             lambda: modp.poly_eval_mod_p(rows2, s), lambda: modp.poly_eval_plain(rows2, s),
+             bound(8 * (2 * d + 1 + 2), at_s_ops(2, d))),
             (f"setup's v_i(s): v [{m}, {d}]", 10,
              lambda: modp.matvec_mod_p(ssp.v, powers), lambda: modp.matvec_plain(ssp.v, powers),
              bound(8 * (m * d + d + m), MATVEC_OPS * m * d))],
         "powers_mod_p": [
-            (f"setup's and the verifier's powers of s: count {d} (launch-bound)", 20,
+            (f"powers_mod_p: count {d} (launch-bound)", 20,
              lambda: modp.powers_mod_p(s, d), lambda: modp.powers_plain(s, d),
-             bound(8 * (d + 1), powers_ops(d)))],
+             bound(8 * (d + 1), powers_ops(d))),
+            (f"the messages form, setup's s^i and alpha s^i: count {d} (launch-bound)", 20,
+             lambda: modp.message_powers(s, alpha, d, out=msgs[: 2 * d]),
+             lambda: modp.message_powers_plain(s, alpha, d),
+             bound(8 * (2 * d + 2), powers_ops(d) + MULMOD_OPS * d))],
         "carry_fold": [
-            (f"the prover's evaluation planes: [5, {n + 1}, 88] int64 (launch-bound)", 20,
+            (f"the planes form, stage-wise and sharded evaluations: [5, {n + 1}, 88] int64", 20,
              lambda: dg.carry_fold(planes), lambda: dg.carry_fold_plain(planes),
              bound(9 * planes.numel(), FOLD_POS_OPS * planes.numel())),
-            (f"setup's b-rows: {n_enc} rows of K4's planes, errors and messages", 20,
+            ("the smudge form, the prover's five draws on four b rows (launch-bound)", 20,
+             lambda: dg.smudge_draws(evals, draws, tsnark.SMUDGE_TARGETS),
+             lambda: dg.smudge_draws_plain(evals.clone(), draws, tsnark.SMUDGE_TARGETS),
+             bound(2 * 4 * 88 + draws.numel(), (FOLD_POS_OPS + 2 * SMUDGE_DRAW_OPS) * 4 * 88)),
+            (f"the MAC-plane form, the prover's epilogue: [4, 5, {n}, 88] + [4, 5, 88]", 20,
+             lambda: dg.fold_mac_planes(acc_a, acc_b), lambda: dg.fold_mac_planes_plain(acc_a, acc_b),
+             bound(8 * (acc_a.numel() + acc_b.numel()) + 5 * (n + 1) * 88,
+                   MAC_POS_OPS * 5 * (n + 1) * 88)),
+            (f"the b-row form, setup's b-rows: {n_enc} rows of K4's planes, errors and messages", 20,
              lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs),
              lambda: dg.b_rows_plain(v_lo, v_hi, errs, msgs),
              bound(n_enc * 88 * (4 + 4 + 1 + 1) + 8 * n_enc, BROW_POS_OPS * n_enc * 88))],
     }
+
+
+I64_MAX = (1 << 63) - 1
+
+
+def python_mac(acc_a, acc_b):
+    """uint8 [k, n+1, 88]: sum_c plane_c * 256^c mod 2^704 of the MAC
+    planes (CPU int64 tensors), by Python ints (K10's MAC-plane form)."""
+    import numpy as np
+    import torch
+
+    planes = torch.cat([acc_a, acc_b[:, :, None, :]], dim=2).tolist()
+    k, rows = len(planes[0]), len(planes[0][0])
+    out = np.zeros((k, rows, 88), np.uint8)
+    for kk in range(k):
+        for i in range(rows):
+            v = sum(x << (8 * (t + c)) for c in range(4) for t, x in enumerate(planes[c][kk][i]))
+            out[kk, i] = np.frombuffer((v % (1 << 704)).to_bytes(88, "little"), np.uint8)
+    return torch.from_numpy(out)
+
+
+def python_smudge(b_rows, draws, targets):
+    """uint8 [E, 88]: the b rows (CPU uint8) after b += -+p * s mod 2^704
+    for each draw (uint8 [S, 81]: 80 digit bytes, the sign byte, low bit 0
+    positive) on row targets[i], by Python ints (K10's smudge form)."""
+    import numpy as np
+    import torch
+
+    p = (1 << 32) - 5
+    b = [int.from_bytes(bytes(r), "little") for r in b_rows.tolist()]
+    for i, e in enumerate(targets):
+        row = draws[i].tolist()
+        sp = int.from_bytes(bytes(row[:-1]), "little") * p
+        b[e] = (b[e] + (-sp if row[-1] & 1 else sp)) % (1 << 704)
+    return torch.from_numpy(np.stack([np.frombuffer(x.to_bytes(88, "little"), np.uint8) for x in b]))
+
+
+def redesign_edges(worse, gen) -> None:
+    """K8's, K9's and K10's new forms at their edges, each against its
+    plain version and Python ints: K9's two forms at s = 0, 1, p - 1 and
+    random, counts 1, 2, 3 and 2^15 + 1; K8's at-s form at d < 8, 2^15 and
+    past 2^21; K10's planes form at 1, 31, 33 and 7,355 rows (int64 planes
+    at 2^63 - 1, the worst ripple and ripples stopped at every position,
+    int32 at 2^31 - 1, K short of and past ndigits, two passes); its
+    MAC-plane form at k = 1 and 5, odd n, planes at 2^63 - 1; its smudge
+    form under every sign pattern, s = 0, 2^640 - 1 and random."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+    from c_lwe_snarks_tpu_torch.ops import modp
+
+    pm1 = modp.P - 1
+    alpha = torch.tensor(2718281828, device=DEVICE)
+    for s9 in (0, 1, pm1, 3141592653):
+        st = torch.tensor(s9, dtype=torch.int64, device=DEVICE)
+        for count in (1, 2, 3, (1 << 15) + 1):
+            got = modp.message_powers(st, alpha, count)
+            worse("powers_mod_p", max_abs_err(got, modp.message_powers_plain(st, alpha, count)))
+            worse("powers_mod_p", max_abs_err(modp.powers_mod_p(st, count), got[:count]))
+            want = [pow(s9, i, modp.P) for i in range(count)]
+            want += [w * 2718281828 % modp.P for w in want]
+            worse("powers_mod_p", max_abs_err(got.cpu(), torch.tensor(want)))
+        for rows, d8 in ((2, 1), (2, 7), (2, 1 << 15), (1, (1 << 21) + 8)):
+            v8 = torch.randint(0, modp.P, (rows, d8), generator=gen).to(DEVICE)
+            v8[0] = pm1
+            got = modp.poly_eval_mod_p(v8, st)
+            worse("matvec_mod_p", max_abs_err(got, modp.poly_eval_plain(v8, st)))
+            if d8 < 8:
+                want = [sum(c * pow(s9, i, modp.P) for i, c in enumerate(r)) % modp.P
+                        for r in v8.tolist()]
+                worse("matvec_mod_p", max_abs_err(got.cpu(), torch.tensor(want)))
+    for rows in (1, 31, 33, 7355):
+        ripples = torch.full((rows, 88), 255, dtype=torch.int64)
+        ripples[:, 0] = 256
+        ripples[torch.arange(1, rows), torch.arange(1, rows) % 87 + 1] = 254  # row 0: the worst ripple
+        edges = [(torch.full((rows, 88), I64_MAX), 88), (ripples, 88),
+                 (torch.full((rows, 88), (1 << 31) - 1, dtype=torch.int32), 88),
+                 (torch.randint(0, I64_MAX, (rows, 61), generator=gen), 88),
+                 (torch.randint(0, I64_MAX, (rows, 120), generator=gen), 88),
+                 (torch.randint(0, I64_MAX, (rows, 150), generator=gen), 140)]
+        for acc, nd in edges:
+            got = dg.carry_fold(acc.to(DEVICE), nd)
+            worse("carry_fold", max_abs_err(got, dg.carry_fold_plain(acc, nd)))
+            if rows <= 33:
+                worse("carry_fold", max_abs_err(got.cpu(), python_fold(acc.long(), nd)))
+    for k, n, top in ((1, 3, I64_MAX), (5, 7, I64_MAX), (5, 1, 1 << 40), (2, 0, I64_MAX)):
+        acc_a = torch.randint(0, top, (4, k, n, 88), generator=gen)
+        acc_b = torch.randint(0, top, (4, k, 88), generator=gen)
+        acc_a[:, :, : min(n, 2)] = top  # planes at their largest
+        acc_b[:, 0] = top
+        got = dg.fold_mac_planes(acc_a.to(DEVICE), acc_b.to(DEVICE))
+        worse("carry_fold", max_abs_err(got, dg.fold_mac_planes_plain(acc_a, acc_b)))
+        worse("carry_fold", max_abs_err(got.cpu(), python_mac(acc_a, acc_b)))
+    n = 3
+    for kind in ("random", "zero", "max"):
+        for signs in range(32):
+            evals = torch.randint(0, 256, (5, n + 1, 88), generator=gen, dtype=torch.uint8)
+            evals[1, n], evals[2, n] = 255, 0  # b at 2^704 - 1 and at 0
+            draws = torch.randint(0, 256, (5, 81), generator=gen, dtype=torch.uint8)
+            if kind != "random":
+                draws[:, :80] = 0 if kind == "zero" else 255  # s = 0 or 2^640 - 1
+            draws[:, 80] = (draws[:, 80] & 0xFE) | ((signs >> torch.arange(5)) & 1).to(torch.uint8)
+            want = python_smudge(evals[:, n], draws, tsnark.SMUDGE_TARGETS)
+            plain = dg.smudge_draws_plain(evals.clone(), draws, tsnark.SMUDGE_TARGETS)
+            got = dg.smudge_draws(evals.clone().to(DEVICE), draws.to(DEVICE), tsnark.SMUDGE_TARGETS)
+            worse("carry_fold", max_abs_err(got[:, n].cpu(), want))
+            worse("carry_fold", max_abs_err(got[:, :n].cpu(), evals[:, :n]))
+            worse("carry_fold", max_abs_err(got, plain))
 
 
 def phase_kernels(results: dict) -> None:
@@ -656,6 +835,7 @@ def phase_kernels(results: dict) -> None:
         worse("carry_fold", max_abs_err(
             dg.carry_fold_b_rows(lo.to(DEVICE), hi.to(DEVICE), e10.to(DEVICE), m10.to(DEVICE)),
             dg.b_rows_plain(lo, hi, e10, m10)))
+    redesign_edges(worse, gen)
     for name, e in errs.items():
         print(f"phase kernels: {name} small shapes max_abs_err={e} (tolerance 0)")
 
@@ -741,14 +921,18 @@ def phase_kernels(results: dict) -> None:
             err = max_abs_err(kern(), want)
             del want
             ms = cuda_ms(kern, reps)
+            ms_issue = cuda_ms(kern, reps, queued=False)
             worse(name, err)
-            # an earlier shape of this kernel keeps its time beside the last one's
-            first = {"ms_first_shape": results[name]["ms"]} if name in results else {}
-            results[name] = {**first, "max_abs_err": errs[name], "ms": ms,
-                             "plain_ms": plain_ms, **bnd, "library_ms": None}
+            # every shape of this kernel keeps its numbers beside the last one's
+            earlier = results[name]["cases"] if name in results else []
+            case = {"shape": shape, "ms": ms, "ms_issue": ms_issue, "plain_ms": plain_ms, **bnd}
+            results[name] = {"max_abs_err": errs[name], "ms": ms, "ms_issue": ms_issue,
+                             "plain_ms": plain_ms, **bnd, "library_ms": None,
+                             "cases": earlier + [case]}
             print(f"phase kernels: {name} [{shape}] max_abs_err={err} (tolerance 0); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-                  f"by {bnd['bound_by']} ({100 * bnd['bound_ms'] / ms:.1f} %)")
+                  f"kernel {ms:.4f} ms queued ({ms_issue:.4f} ms issued back to back), plain "
+                  f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                  f"({100 * bnd['bound_ms'] / ms:.1f} %)")
             if name == "keystream_blocks_v1":  # at K1's count
                 at = bnd["bound_ms"] * CF_OPS / BITSLICED_OPS
                 print(f"phase kernels: {name} [{shape}] at K1's {CF_OPS} operations a block: "
@@ -842,6 +1026,41 @@ def profiled_line(tag: str, kernel: str, counter: str, fn, reps: int, label: str
     return us / count
 
 
+def host_issue(label: str, calls: int = 2000) -> None:
+    """The host's time to issue one kernel launch at the smallest shape
+    (K9, one power), by host clock over many calls, and its parts: the
+    whole wrapper (its checks, the output's allocation, _build.launch),
+    _build.launch alone on a ready output, the current stream's handle,
+    an empty tensor's allocation, and the bare ctypes call."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.ops import _build, modp
+
+    s = torch.tensor([5], dtype=torch.int64, device=DEVICE)
+    out = torch.empty(1, dtype=torch.int64, device=DEVICE)
+    fn = _build.library().cls_powers_mod_p
+    ptr_s, ptr_o = s.data_ptr(), out.data_ptr()
+    parts = {
+        "the wrapper powers_mod_p(s, 1)": lambda: modp.powers_mod_p(s, 1),
+        "_build.launch on a ready output": lambda: _build.launch("cls_powers_mod_p", s, s, 0, 1, out),
+        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "torch.empty(1, int64) on the card": lambda: torch.empty(1, dtype=torch.int64, device=DEVICE),
+        "the bare ctypes call": lambda: fn(ptr_s, ptr_s, 0, 1, ptr_o,
+                                           torch.cuda.current_stream().cuda_stream),
+    }
+    for name, call in parts.items():
+        for _ in range(50):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        host = (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        print(f"phase profile: host issue, {name}: {host * 1e6:.2f} us a call ({calls} calls) "
+              f"[{label}]")
+
+
 def phase_profile(label: str) -> None:
     """What the device does during random_ssp at release parameters, by
     kernel, and the device-side durations of K1 at three sizes and of K5 at
@@ -852,6 +1071,7 @@ def phase_profile(label: str) -> None:
     profiler that traces no device activity is reported as such."""
     import torch
 
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
     from c_lwe_snarks_tpu_torch.models import ssp as tssp
     from c_lwe_snarks_tpu_torch.ops import aes, eval_fused, modp, sampling
     from c_lwe_snarks_tpu_torch.ops import digits as dg
@@ -880,26 +1100,45 @@ def phase_profile(label: str) -> None:
             profiled_line(f"{tag} at {nblocks} blocks", kernel, counter, lambda: [
                 aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version)
                 for _ in range(reps)], reps, label)
-    # K8, K9 and K10 device-side at setup's shapes: v [m, d], 2^15 powers,
-    # the b-rows of 2d + m encryptions (K4's planes made once, outside)
+    # K8, K9 and K10 device-side at the main path's shapes: setup's v [m, d]
+    # and its messages form at d, the verifier's two rows at s, the b-rows
+    # of 2d + m encryptions (K4's planes made once, outside), the prover's
+    # MAC planes and smudging, the stage-wise and sharded paths' planes
     s = torch.tensor(123456789, dtype=torch.int64, device=DEVICE)
+    alpha = torch.tensor(987654321, dtype=torch.int64, device=DEVICE)
     powers = modp.powers_mod_p(s, P.d)
+    rows2 = torch.stack([ssp.t, ssp.v[0]])
     n_enc = 2 * P.d + P.m
     sk = torch.randint(0, 256, (P.n, 88), dtype=torch.uint8, device=DEVICE)
     v_lo, v_hi = eval_fused.encrypt_b_planes(ent_key, P.ctr_s, sk, n_enc, P.n, P.ctr_ct)
     errs = torch.randint(0, 256, (n_enc, 88), dtype=torch.uint8, device=DEVICE)
     msgs = torch.randint(0, modp.P, (n_enc,), device=DEVICE)
+    acc_a = torch.randint(0, 1 << 40, (4, 5, P.n, 88), device=DEVICE)
+    acc_b = torch.randint(0, 1 << 40, (4, 5, 88), device=DEVICE)
+    planes = torch.randint(0, 1 << 26, (5, P.n + 1, 88), device=DEVICE)
+    evals, draws = smudge_case(P, ent_key)
     for tag, kernel, counter, fn, launches in (
             (f"K8 at setup's v [{P.m}, {P.d}]", "matvec_kernel", "matvec_mod_p",
              lambda: modp.matvec_mod_p(ssp.v, powers), modp.LAUNCHES),
+            (f"K8's at-s form at the verifier's [2, {P.d}]", "matvec_kernel", "matvec_mod_p",
+             lambda: modp.poly_eval_mod_p(rows2, s), modp.LAUNCHES),
             (f"K9 at {P.d} powers", "powers_kernel", "powers_mod_p",
              lambda: modp.powers_mod_p(s, P.d), modp.LAUNCHES),
+            (f"K9's messages form at d = {P.d}", "powers_kernel", "powers_mod_p",
+             lambda: modp.message_powers(s, alpha, P.d), modp.LAUNCHES),
             (f"K10's b-row form at {n_enc} rows", "carry_fold_kernel", "carry_fold",
-             lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs), dg.LAUNCHES)):
+             lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs), dg.LAUNCHES),
+            (f"K10's MAC-plane form at [4, 5, {P.n}, 88]", "carry_fold_kernel", "carry_fold",
+             lambda: dg.fold_mac_planes(acc_a, acc_b), dg.LAUNCHES),
+            ("K10's smudge form, five draws on four rows", "carry_fold_kernel", "carry_fold",
+             lambda: dg.smudge_draws(evals, draws, tsnark.SMUDGE_TARGETS), dg.LAUNCHES),
+            (f"K10's planes form at [5, {P.n + 1}, 88] int64", "carry_fold_kernel", "carry_fold",
+             lambda: dg.carry_fold(planes), dg.LAUNCHES)):
         fn()
         profiled_line(tag, kernel, counter, lambda: [fn() for _ in range(reps)], reps, label,
                       launches)
-    del ssp, v_lo, v_hi
+    del ssp, v_lo, v_hi, acc_a
+    host_issue(label)
     # the release prover after a warm call, and what its polynomial stage
     # launches by kernel name (tools/profile_prover.py); then setup and
     # the verifier, each traced once (tools/profile_stage.py)
@@ -961,6 +1200,7 @@ def phase_release(label: str):
     from c_lwe_snarks_tpu_torch.__main__ import run_protocol
     from c_lwe_snarks_tpu_torch.models import lwe as tlwe
     from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
     from c_lwe_snarks_tpu_torch.ops import modp, sampling
     from c_lwe_snarks_tpu_torch.utils.params import release
 
@@ -990,26 +1230,37 @@ def phase_release(label: str):
           f"Dec(s_0)={dec_s0} Dec(as_0)==alpha: {dec_as0 == int(run.vrs.alpha)}")
     check(rejected, "release: a tampered proof was accepted")
     check(dec_s0 == 1 and dec_as0 == int(run.vrs.alpha), "release: CRS decrypt probe")
-    # setup's message schedule (K9, K8) and the verifier (K10, K9, K8), each
-    # once with any host sync an error, up to the verifier's bool tensor
+    # setup's message schedule (K9, K8), the prover's evaluations and
+    # smudging (K3, K10's MAC-plane and smudge forms) and the verifier (K10,
+    # K8's at-s form), each once with any host sync an error, up to the
+    # verifier's bool tensor; the prover's polynomials come first, outside
     vrs, ssp = run.vrs, run.ssp
+    crs_key, ent_key = sampling.PRGKey(CRS_SEED, DEVICE), sampling.PRGKey(ENT_SEED, DEVICE)
+    off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
+    delta, w, v, h = tsnark.prover_polys(ent_key, off_prove, ssp, run.witness, P)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        powers = modp.powers_mod_p(vrs.s, P.d)
-        t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
-        msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, powers, t_s,
-                                     modp.matvec_mod_p(ssp.v, powers))
-        accepted = tsnark.verifier(vrs, ssp, run.proof, P)
+        msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, vrs.s, ssp.t,
+                                     lambda powers: modp.matvec_mod_p(ssp.v, powers), P.d, P.m)
+        evals = tsnark._prover_evals_onepass(crs_key, run.crs, w, h, v, delta, run.witness, P)
+        proof = tsnark.smudge_proof(ent_key, off_prove, evals, P)
+        accepted = tsnark.verifier(vrs, ssp, proof, P)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     same_s = int(msgs[1]) == int(vrs.s) and int(msgs[P.d]) == int(vrs.alpha)
-    print(f"phase release: setup's message schedule and the verifier under "
-          f"set_sync_debug_mode('error'): no host sync, verified={bool(accepted)}, "
-          f"s and alpha in the schedule={same_s}")
-    check(bool(accepted) and same_s, "release: the schedule or the verifier without host sync")
+    same_proof = torch.equal(proof.stack(), run.proof.stack())
+    print(f"phase release: setup's message schedule, the prover's evaluations and smudging and "
+          f"the verifier under set_sync_debug_mode('error'): no host sync, "
+          f"verified={bool(accepted)}, s and alpha in the schedule={same_s}, "
+          f"proof equal to the run's={same_proof}")
+    check(bool(accepted) and same_s and same_proof,
+          "release: the schedule, the smudging or the verifier without host sync")
     for name in RELEASE_PATH:
         check(launches[name] > 0, f"release: kernel {name} was not launched on the main path")
+    for name, planned in RELEASE_LAUNCHES.items():
+        check(launches[name] == planned,
+              f"release: {launches[name]} launches of {name}, planned {planned}")
     k6_plan = k6_division_launches(P.d) + 3  # the division and v^2
     check(launches["ntt"] == k6_plan, f"release: {launches['ntt']} K6 launches, planned {k6_plan}")
     # the spread of the stage walls: the same run five more times
@@ -1191,7 +1442,6 @@ def phase_sharded(run, label: str) -> dict:
     vrs, ssp = run.vrs, run.ssp
     crs_rows = torch.cat([run.crs.b_s, run.crs.b_as, run.crs.b_t[None], run.crs.b_v])
     powers = modp.powers_mod_p(vrs.s, d)
-    t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
     # the prover's polynomials on one device: the sweep's inputs
     delta, w, v, h = tsnark.prover_polys(ent_key, off_prove, ssp, run.witness, P)
     b_all, coeffs = tsnark.onepass_terms(run.crs, w, h, v, delta, run.witness, P)
@@ -1210,7 +1460,8 @@ def phase_sharded(run, label: str) -> dict:
         t = t_sum % modp.P
         t[0] = modp.submod_p(t[0], 1)
         same_t = torch.equal(t, ssp.t)
-        msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, powers, t_s, torch.cat(v_s))
+        msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, vrs.s, ssp.t, lambda _: torch.cat(v_s),
+                                     d, m)
         same_rows = True
         for r in range(world):
             lo, hi = chunk_bounds(n_enc, r, world)

@@ -413,7 +413,8 @@ def test_k6_k7_prover_polys_without_host_sync(cuda):
 
 
 # --------------------------------------------------------------------------
-# K8 (matvec_mod_p), K9 (powers_mod_p), K10 (carry_fold and its b-row form)
+# K8 (matvec_mod_p and its at-s form), K9 (powers_mod_p and its messages
+# form), K10 (carry_fold: the planes, b-row, MAC-plane and smudge forms)
 # --------------------------------------------------------------------------
 
 
@@ -470,6 +471,49 @@ def test_k9_powers_mod_p(cuda, s):
         modp.powers_mod_p(torch.tensor([1, 2], device=cuda), 4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [0, 1, PM1, 3141592653])
+def test_k9_message_powers(cuda, s):
+    """K9's messages form against its plain version: s in {0, 1, p - 1,
+    random}, counts 1, 2, 3 and 2^15 + 1, into its own tensor and with out=
+    into the head of a buffer between sentinels."""
+    alpha = torch.tensor(2718281828, device=cuda)
+    st = torch.tensor(s, device=cuda)
+    for count in (1, 2, 3, (1 << 15) + 1):
+        before = modp.LAUNCHES["powers_mod_p"]
+        got = modp.message_powers(st, alpha, count)
+        assert modp.LAUNCHES["powers_mod_p"] == before + 1
+        want = modp.message_powers_plain(st, alpha, count)
+        _eq(got, want)
+        buf = torch.full((2 * count + 2,), -7, dtype=torch.int64, device=cuda)
+        modp.message_powers(st, alpha, count, out=buf[: 2 * count])
+        _eq(buf[: 2 * count], want)
+        assert bool((buf[2 * count :] == -7).all())
+    with pytest.raises(ValueError, match="out:"):
+        modp.message_powers(st, alpha, 4, out=torch.empty(16, dtype=torch.int64, device=cuda)[::2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", [(2, 1), (2, 7), (1, 8), (2, 1 << 15), (1, (1 << 21) + 8),
+                                    (9, 40000)])
+def test_k8_poly_eval_at_s(cuda, rows, d):
+    """K8's at-s form (w = s^i made in the block) against its plain
+    version, at d < 8, 2^15 and past 2^21, s in {0, 1, p - 1, random}, every
+    coefficient p - 1 in the first row; one launch, no K9."""
+    rng = np.random.default_rng(rows + d)
+    v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.int64)).to(cuda)
+    v[0] = PM1
+    for s in (0, 1, PM1, 123456789):
+        st = torch.tensor(s, device=cuda)
+        before = {**modp.LAUNCHES}
+        got = modp.poly_eval_mod_p(v, st)
+        assert modp.LAUNCHES["matvec_mod_p"] == before["matvec_mod_p"] + 1
+        assert modp.LAUNCHES["powers_mod_p"] == before["powers_mod_p"]
+        _eq(got, modp.poly_eval_plain(v, st))
+    with pytest.raises(ValueError, match="v:"):
+        modp.poly_eval_mod_p(v.int(), st)
+
+
 def _fold_ref(acc: np.ndarray, ndigits: int) -> np.ndarray:
     """Python ints: sum_t acc[..., t] * 256^t mod 256^ndigits as digits."""
     flat = acc.reshape(-1, acc.shape[-1])
@@ -482,12 +526,15 @@ def _fold_ref(acc: np.ndarray, ndigits: int) -> np.ndarray:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random47", "int32", "ripple", "truncate", "pad", "wide",
-                                  "prover", "mesh"])
+                                  "prover", "mesh", "int64max", "int32max", "two_passes",
+                                  "one_row", "warp_short", "warp_over"])
 def test_k10_carry_fold(cuda, case):
-    """K10 against its plain version (and Python ints): planes up to 2^47,
-    int32 planes, the worst ripple (256 then 87 positions of 255), K past
-    and short of ndigits, planes near 2^62 (past the plain version's
-    range), the prover's [5, 1471, 88] and the mesh's int32 sums."""
+    """K10's planes form against its plain version (and Python ints):
+    planes up to 2^47, int32 planes, the worst ripple (256 then 87
+    positions of 255) and ripples stopped at every position, K past and
+    short of ndigits, planes near 2^62 and at 2^63 - 1, int32 at 2^31 - 1,
+    ndigits past one pass, 1, 31 and 33 rows, the prover's [5, 1471, 88]
+    and the mesh's int32 sums."""
     from c_lwe_snarks_tpu_torch.ops import digits as dg
 
     rng = np.random.default_rng(len(case))
@@ -508,17 +555,106 @@ def test_k10_carry_fold(cuda, case):
         acc = rng.integers(0, 1 << 62, size=(65, 88), dtype=np.int64)
     elif case == "prover":
         acc = rng.integers(0, 1 << 40, size=(5, 1471, 88), dtype=np.int64)
-    else:
+    elif case == "mesh":
         acc = rng.integers(0, 4 * 255 + 1, size=(5, 33, 88), dtype=np.int64).astype(np.int32)
+    elif case == "int64max":
+        acc = np.full((33, 88), (1 << 63) - 1, np.int64)
+    elif case == "int32max":
+        acc = np.full((31, 88), (1 << 31) - 1, np.int32)
+    elif case == "two_passes":
+        acc = rng.integers(0, 1 << 63, size=(33, 150), dtype=np.int64)
+        nd = 140
+    else:
+        rows = {"one_row": 1, "warp_short": 31, "warp_over": 33}[case]
+        acc = rng.integers(0, 1 << 63, size=(rows, 88), dtype=np.int64)
+        acc[0] = 255
+        acc[0, 0] = 256
     x = torch.from_numpy(acc).to(cuda)
     before = dg.LAUNCHES["carry_fold"]
     got = dg.carry_fold(x, nd)
     assert dg.LAUNCHES["carry_fold"] == before + 1
     assert got.dtype == torch.uint8 and got.shape == (*acc.shape[:-1], nd)
-    if case != "wide":
-        _eq(got, dg.carry_fold_plain(x, nd))
-    if case in ("ripple", "truncate", "pad", "wide", "mesh"):
+    _eq(got, dg.carry_fold_plain(x, nd))
+    if case not in ("random47", "int32", "prover"):
         _eq(got, torch.from_numpy(_fold_ref(acc, nd)))
+
+
+def _mac_ref(acc_a: np.ndarray, acc_b: np.ndarray) -> np.ndarray:
+    """sum_c plane_c * 256^c mod 2^704 at every (evaluation, coordinate), Python ints."""
+    planes = np.concatenate([acc_a, acc_b[:, :, None, :]], axis=2)
+    out = np.zeros(planes.shape[1:], np.uint8)
+    for kk in range(planes.shape[1]):
+        for i in range(planes.shape[2]):
+            v = sum(int(x) << (8 * (t + c)) for c in range(4) for t, x in enumerate(planes[c, kk, i]))
+            out[kk, i] = np.frombuffer((v % (1 << 704)).to_bytes(88, "little"), np.uint8)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,top", [(1, 3, 1 << 63), (5, 7, 1 << 63), (5, 1470, 1 << 40),
+                                     (1, 1, 1 << 20), (2, 0, 1 << 63)])
+def test_k10_mac_planes(cuda, k, n, top):
+    """K10's MAC-plane form against its plain version (and Python ints on
+    the small shapes): k = 1 and 5, odd n, the release shape, planes at
+    2^63 - 1; it refuses a strided or wrongly typed plane array."""
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+
+    rng = np.random.default_rng(k * n + 1)
+    acc_a = rng.integers(0, top, size=(4, k, n, 88), dtype=np.int64)
+    acc_b = rng.integers(0, top, size=(4, k, 88), dtype=np.int64)
+    acc_a[:, :, : min(n, 2)] = top - 1
+    acc_b[:, 0] = top - 1
+    a, b = torch.from_numpy(acc_a).to(cuda), torch.from_numpy(acc_b).to(cuda)
+    before = dg.LAUNCHES["carry_fold"]
+    got = dg.fold_mac_planes(a, b)
+    assert dg.LAUNCHES["carry_fold"] == before + 1 and got.shape == (k, n + 1, 88)
+    _eq(got, dg.fold_mac_planes_plain(a, b))
+    if n < 10:
+        _eq(got, torch.from_numpy(_mac_ref(acc_a, acc_b)))
+    strided = torch.zeros(4, k, 2 * 88, dtype=torch.int64, device=cuda)[..., ::2]
+    shifted = torch.zeros(4 * k * 88 + 1, dtype=torch.int64, device=cuda)[1:].view(4, k, 88)
+    for bad_a, bad_b, name in ((a.int(), b, "acc_a"), (a, strided, "acc_b"), (a, b[:, :, :80], "acc_b"),
+                               (a, shifted, "acc_b")):
+        with pytest.raises(ValueError, match=name):
+            dg.fold_mac_planes(bad_a, bad_b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_kind", ["random", "zero", "max"])
+def test_k10_smudge(cuda, s_kind):
+    """K10's smudge form against its plain version under every sign
+    pattern of the five draws, s random, 0 and 2^640 - 1, b rows at 0 and
+    at 2^704 - 1; the one-row case (lwe.smudge) on a batch; the refusals."""
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+
+    n = 1470 if s_kind == "random" else 5
+    rng = np.random.default_rng(len(s_kind))
+    base = torch.from_numpy(rng.integers(0, 256, size=(5, n + 1, 88), dtype=np.uint8)).to(cuda)
+    base[1, n] = 255
+    base[2, n] = 0
+    for signs in range(32):
+        draws = torch.from_numpy(rng.integers(0, 256, size=(5, 81), dtype=np.uint8)).to(cuda)
+        if s_kind != "random":
+            draws[:, :80] = 0 if s_kind == "zero" else 255
+        draws[:, 80] = torch.tensor([(draws[i, 80].item() & 0xFE) | (signs >> i & 1)
+                                     for i in range(5)], dtype=torch.uint8)
+        before = dg.LAUNCHES["carry_fold"]
+        got = dg.smudge_draws(base.clone(), draws, tsnark.SMUDGE_TARGETS)
+        assert dg.LAUNCHES["carry_fold"] == before + 1
+        _eq(got, dg.smudge_draws_plain(base.cpu().clone(), draws.cpu(), tsnark.SMUDGE_TARGETS))
+    s = draws[0, :88 if s_kind == "max" else 80]
+    s88 = torch.nn.functional.pad(s, (0, 88 - s.shape[0]))
+    for positive in (True, False):
+        sign = torch.tensor(positive, device=cuda)
+        P = Params(d=16, m=8, n=n)
+        got = tlwe.smudge(base, s88, sign, P)
+        _eq(got, tlwe.smudge(base.cpu(), s88.cpu(), sign.cpu(), P))
+    with pytest.raises(ValueError, match="draws"):
+        dg.smudge_draws(base.clone(), draws[:, ::2], tsnark.SMUDGE_TARGETS)
+    with pytest.raises(ValueError):
+        dg.smudge_draws(base.clone(), draws, (0, 1, 2, 3, 16))
+
 
 
 @pytest.mark.gpu
@@ -543,6 +679,9 @@ def test_k10_b_rows(cuda):
     _eq(got, dg.b_rows_plain(v_lo, v_hi, errs, msgs))
     with pytest.raises(ValueError, match="v_lo:"):
         dg.carry_fold_b_rows(v_lo.to(cuda).long(), v_hi.to(cuda), errs.to(cuda), msgs.to(cuda))
+    shifted = torch.empty(B * 88 + 1, dtype=torch.int32, device=cuda)[1:].view(B, 88)
+    with pytest.raises(ValueError, match="v_hi: expected a start aligned"):  # no pair load there
+        dg.carry_fold_b_rows(v_lo.to(cuda), shifted, errs.to(cuda), msgs.to(cuda))
 
     P = Params(d=16, m=8, n=19)
     key = sampling.PRGKey(SEED, cuda)
@@ -555,32 +694,43 @@ def test_k10_b_rows(cuda):
 
 @pytest.mark.gpu
 def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
-    """Setup's message schedule (K9, K8) and the verifier (K10 in its
-    decrypts, K9 and K8 at s) make no host sync up to the returned bool
-    tensor, after one warm call; the results equal the plain path's."""
+    """Setup's message schedule (K9's messages form, K8), the prover's
+    evaluations and smudging (K3, K10's MAC-plane and smudge forms) and the
+    verifier (K10 in its decrypts, K8's at-s form) make no host sync, after
+    one warm run; K9 launches once, K8 three times (t(s), v and the
+    verifier's two rows in one), K10 four times (the epilogue, the five
+    smudges, the two decrypt folds); the results equal the plain path's."""
     P = Params(d=1 << 12, m=64, n=32)
     key = sampling.PRGKey(SEED, cuda)
+    ent = sampling.PRGKey(bytes([1] * 40), cuda)
     run = run_protocol(P, cuda, SEED, bytes([1] * 40))  # warm: the library, cached constants
     assert run.verified
     vrs, ssp = run.vrs, run.ssp
-    scalars = sampling.keystream_bytes(key, 0, 24).reshape(3, 8)
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    off_prove = off_setup + tsnark.setup_entropy_bytes(P)
+    scalars = sampling.keystream_bytes(ent, off_setup, 24).reshape(3, 8)
     alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
-    counters = {**modp.LAUNCHES}
+    delta, w, v, h = tsnark.prover_polys(ent, off_prove, ssp, run.witness, P)
+    from c_lwe_snarks_tpu_torch.ops import digits as dg
+
+    counters = {**modp.LAUNCHES, **dg.LAUNCHES}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        powers = modp.powers_mod_p(s, P.d)
-        t_s = modp.matvec_mod_p(ssp.t[None, :], powers)[0]
-        msgs = tsnark.setup_messages(alpha, beta, powers, t_s, modp.matvec_mod_p(ssp.v, powers))
-        ok = tsnark.verifier(vrs, ssp, run.proof, P)
+        msgs = tsnark.setup_messages(
+            alpha, beta, s, ssp.t, lambda powers: modp.matvec_mod_p(ssp.v, powers), P.d, P.m)
+        evals = tsnark._prover_evals_onepass(key, run.crs, w, h, v, delta, run.witness, P)
+        proof = tsnark.smudge_proof(ent, off_prove, evals, P)
+        ok = tsnark.verifier(vrs, ssp, proof, P)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert modp.LAUNCHES["powers_mod_p"] - counters["powers_mod_p"] == 3
-    assert modp.LAUNCHES["matvec_mod_p"] - counters["matvec_mod_p"] == 4
+    assert modp.LAUNCHES["powers_mod_p"] - counters["powers_mod_p"] == 1
+    assert modp.LAUNCHES["matvec_mod_p"] - counters["matvec_mod_p"] == 3
+    assert dg.LAUNCHES["carry_fold"] - counters["carry_fold"] == 4
     assert bool(ok)
+    _eq(proof.stack(), run.proof.stack())
     cpu_ssp = tssp.SSP(t=ssp.t.cpu(), v=ssp.v.cpu())
-    c_alpha, c_beta, c_s = alpha.cpu(), beta.cpu(), s.cpu()
-    c_pow = modp.powers_mod_p(c_s, P.d)
-    want = tsnark.setup_messages(c_alpha, c_beta, c_pow, modp.matvec_mod_p(cpu_ssp.t[None, :], c_pow)[0],
-                                 modp.matvec_mod_p(cpu_ssp.v, c_pow))
+    want = tsnark.setup_messages(alpha.cpu(), beta.cpu(), s.cpu(), cpu_ssp.t,
+                                 lambda powers: modp.matvec_mod_p(cpu_ssp.v, powers), P.d, P.m)
     _eq(msgs, want)
+    assert int(msgs[1]) == int(vrs.s) and int(msgs[P.d]) == int(vrs.alpha)

@@ -1,12 +1,17 @@
-"""K8 (matvec_mod_p) and K9 (powers_mod_p), c_lwe_snarks_tpu_torch/csrc/modp.cu:
-their plain versions against the JAX package's functions and Python ints,
-and numpy models of each kernel's decomposition, tolerance 0.
+"""K8 (matvec_mod_p, and its at-s form poly_eval_mod_p) and K9
+(powers_mod_p, and its messages form message_powers),
+c_lwe_snarks_tpu_torch/csrc/modp.cu: their plain versions against the JAX
+package's functions and Python ints, and numpy models of each kernel's
+decomposition, tolerance 0.
 
 The models follow the kernels with the .cu's own constants: K8's blocks
 of kRows rows and a column segment, each thread's 64-bit sum of products
 folded to < 2^35, the warp and block sums, the split rows' residues added
-in split order; K9's per-thread square and multiply with the device's
-mulmod.  Each asserts the bounds the .cu states.  The kernels themselves
+in split order; in the at-s form each thread's operand made from s by
+square and multiply at its first column, then one mulmod by s^kThreads a
+column; K9's per-thread square and multiply with the device's mulmod, and
+alpha times it in the messages form.  Each asserts the bounds the .cu
+states.  The kernels themselves
 are held against the plain versions on a GPU in tests/test_torch_cuda.py
 and chip_smoke.py.
 """
@@ -31,6 +36,7 @@ SOURCE = (pathlib.Path(tmodp.__file__).resolve().parent.parent / "csrc" / "modp.
 _jmatvec = jax.jit(jmodp.matvec_mod_p)
 _jpowers = jax.jit(jmodp.powers_mod_p, static_argnums=1)
 _jpoly_eval = jax.jit(jmodp.poly_eval_mod_p)
+_jmulmod = jax.jit(jmodp.mulmod_p)
 
 
 def constant(name: str) -> int:
@@ -203,3 +209,73 @@ def test_poly_eval_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
     powers = k9_model(s, 1000).astype(np.uint64)
     np.testing.assert_array_equal(k8_model(x.astype(np.uint64), powers), want)
+
+
+def device_pow(b: np.ndarray, e: np.ndarray) -> np.ndarray:
+    """modp.cu's pow_mod_p: square and multiply over e's bits, elementwise."""
+    e = e.astype(np.uint64).copy()
+    b = b.astype(np.uint64).copy()
+    r = np.ones(e.shape, np.uint64)
+    while e.any():
+        r = np.where(e & np.uint64(1), device_mulmod(r, b), r)
+        b = device_mulmod(b, b)
+        e = e >> np.uint64(1)
+    return r
+
+
+def k8_at_s_operand(s: int, rows: int, d: int) -> np.ndarray:
+    """The at-s form's w as its threads make it: thread t of split y starts
+    at column y * seg + t with s^that by square and multiply, then steps
+    one mulmod by s^kThreads a column; every column's word, in order."""
+    splits = tmodp.matvec_splits(rows, d)
+    seg = -(-(-(-d // splits)) // THREADS) * THREADS
+    first = np.arange(splits)[:, None] * seg + np.arange(THREADS)  # [splits, kThreads]
+    cur = device_pow(np.full(first.shape, s, np.uint64), first)
+    step = device_pow(np.array([s], np.uint64), np.array([THREADS]))
+    w = np.zeros(splits * seg, np.uint64)
+    for u in range(seg // THREADS):
+        w[first + u * THREADS] = cur
+        cur = device_mulmod(cur, step)
+    return w[:d]
+
+
+@pytest.mark.parametrize("s", [0, 1, P - 1, 2718281828])
+@pytest.mark.parametrize("count", [1, 2, 3, (1 << 15) + 1])
+def test_message_powers_match_jax(s, count):
+    """K9's messages form: s^i then alpha s^i against the JAX package's
+    powers_mod_p and mulmod_p (setup's first 2d plaintexts), written into
+    the head of a larger buffer with out=; the model: the powers kernel's
+    square and multiply, and alpha times each by the device's mulmod."""
+    alpha = 3141592653 if s != 1 else P - 1
+    pw = _jpowers(jnp.uint32(s), count)
+    want = np.concatenate([np.asarray(pw), np.asarray(_jmulmod(jnp.uint32(alpha), pw))]).astype(np.int64)
+    ts, ta = torch.tensor(s, dtype=torch.int64), torch.tensor(alpha, dtype=torch.int64)
+    np.testing.assert_array_equal(tmodp.message_powers(ts, ta, count).numpy(), want)
+    buf = torch.full((2 * count + 3,), -1, dtype=torch.int64)
+    tmodp.message_powers(ts, ta, count, out=buf[: 2 * count])
+    np.testing.assert_array_equal(buf[: 2 * count].numpy(), want)
+    assert (buf[2 * count :] == -1).all()
+    powers = k9_model(s, count).astype(np.uint64)
+    model = np.concatenate([powers, device_mulmod(np.full(count, alpha, np.uint64), powers)])
+    np.testing.assert_array_equal(model.astype(np.int64), want)
+
+
+@pytest.mark.parametrize("rows,d", [(2, 1), (2, 7), (1, 8), (2, 1 << 15), (1, (1 << 21) + 8), (5, 999)])
+def test_poly_eval_at_s_matches_jax(rows, d):
+    """K8's at-s form (the verifier's t(s) and v_0(s) as two stacked rows):
+    the plain version and the model, whose operand is made by the threads'
+    stepping, against the JAX package's poly_eval_mod_p at d < 8, 2^15 and
+    past 2^21; s = p - 1 on the first case of each shape."""
+    rng = np.random.default_rng(rows + d)
+    x = rng.integers(0, P, size=(rows, d), dtype=np.uint64).astype(np.uint32)
+    x[0, : d // 2] = P - 1
+    for s in (P - 1, int(rng.integers(2, P))):
+        want = np.asarray(_jpoly_eval(jnp.asarray(x), jnp.uint32(s))).astype(np.int64)
+        got = tmodp.poly_eval_mod_p(torch.from_numpy(x.astype(np.int64)), torch.tensor(s))
+        np.testing.assert_array_equal(got.numpy(), want)
+        w = k8_at_s_operand(s, rows, d)
+        if d <= 1 << 15:
+            np.testing.assert_array_equal(w.astype(np.int64), k9_model(s, d))
+        else:
+            assert [int(w[i]) for i in (0, 1, d - 1)] == [1, s, pow(s, d - 1, P)]
+        np.testing.assert_array_equal(k8_model(x.astype(np.uint64), w), want)
