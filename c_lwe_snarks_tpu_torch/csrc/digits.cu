@@ -264,17 +264,15 @@ struct Mac {
 };
 
 // the smudge form: row r's b digits at b + r * b_stride (uint8 [88], rewritten
-// in place); draw i's digits s + i * s_stride (s_len of them), its sign byte
-// sign[i * sign_stride] (positive iff its low bit is pos_bit), its target
-// row (targets >> 4 i) & 15, 15 meaning every row; x < 2^26 for 2 draws a row
+// in place); draw i at s + i * s_stride: its s_len digits, then its sign byte
+// (positive iff its low bit is 0); its target row (targets >> 4 i) & 15, 15
+// meaning every row; x < 2^26 for 2 draws a row
 struct Smudge {
   const uint8_t* b;
   int64_t b_stride;
   const uint8_t* s;
   int64_t s_stride, s_len;
-  const uint8_t* sign;
-  int64_t sign_stride;
-  uint32_t pos_bit, draws, targets;
+  uint32_t draws, targets;
   __device__ __forceinline__ void operator()(int64_t row, int64_t p0, int g,
                                              uint64_t (&x)[kPer]) const {
     load_bytes(b + row * b_stride, p0, x);
@@ -285,7 +283,7 @@ struct Smudge {
       with_below(sv, g, E);
       const uint32_t tgt = (targets >> (4 * i)) & 15u;
       if (tgt != 15u && tgt != row) continue;
-      const bool pos = (__ldg(sign + i * sign_stride) & 1u) == pos_bit;
+      const bool pos = (__ldg(s + i * s_stride + s_len) & 1u) == 0;
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const uint32_t y = p_times(E, j);
@@ -372,17 +370,14 @@ extern "C" int cls_carry_fold_mac(const void* a, const void* b, int64_t k, int64
 }
 
 // b: uint8, row r's 88 digits at b + b_off + r * b_stride, rewritten in
-// place; s: uint8, draw i's s_len <= 88 digits at s + i * s_stride; sign:
-// uint8, draw i's sign byte at sign + sign_off + i * sign_stride; draws <= 8,
-// rows <= 15 unless every draw's target is 15 (every row).
+// place; s: uint8, draw i at s + i * s_stride, its s_len <= 88 digits then
+// its sign byte; draws <= 8, rows <= 15 unless every draw's target is 15
+// (every row).
 extern "C" int cls_carry_fold_smudge(void* b, int64_t b_off, int64_t b_stride, int64_t rows,
                                      const void* s, int64_t s_stride, int64_t s_len,
-                                     const void* sign, int64_t sign_off, int64_t sign_stride,
-                                     uint32_t pos_bit, uint32_t draws, uint32_t targets,
-                                     void* stream) {
+                                     uint32_t draws, uint32_t targets, void* stream) {
   uint8_t* rows_at = static_cast<uint8_t*>(b) + b_off;
-  const Smudge load{rows_at, b_stride, static_cast<const uint8_t*>(s), s_stride, s_len,
-                    static_cast<const uint8_t*>(sign) + sign_off, sign_stride, pos_bit, draws,
+  const Smudge load{rows_at, b_stride, static_cast<const uint8_t*>(s), s_stride, s_len, draws,
                     targets};
   carry_fold_kernel<<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       load, rows, kDigits, rows_at, b_stride, pairs_at(rows_at, b_stride, kDigits));

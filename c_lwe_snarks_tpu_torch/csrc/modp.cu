@@ -34,7 +34,9 @@
 // steps one mulmod a column, so w is never written or read (the verifier's
 // two rows are launch-bound: 2 x 2^15 entries).
 //
-// K9 is launch-bound (2^15 words written at release): a thread computes
+// K9 is launch-bound (2^15 words written at release; its bound on the H100
+// is those bytes, 0.08 us, a mulmod a word being far under the integer
+// rate, and the messages form's 2 x 2^15 words 0.16 us): a thread computes
 // s^i by square and multiply over i's bits, with s (and alpha) read from
 // device memory, so the host never reads them; the messages form writes
 // s^i at i and alpha s^i at count + i of the message buffer, so setup's

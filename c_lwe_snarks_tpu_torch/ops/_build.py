@@ -42,8 +42,7 @@ SIGNATURES = {
     "cls_carry_fold": ("p", "u32", "i64", "i64", "i64", "p"),
     "cls_carry_fold_b_rows": ("p", "p", "p", "p", "i64", "p"),
     "cls_carry_fold_mac": ("p", "p", "i64", "i64", "p"),
-    "cls_carry_fold_smudge": (
-        "p", "i64", "i64", "i64", "p", "i64", "i64", "p", "i64", "i64", "u32", "u32", "u32"),
+    "cls_carry_fold_smudge": ("p", "i64", "i64", "i64", "p", "i64", "i64", "u32", "u32"),
     "cls_keystream_blocks": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_keystream_fold_p": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_eval_mac_planes": (

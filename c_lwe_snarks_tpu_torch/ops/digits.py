@@ -217,13 +217,12 @@ def smudge_draws_plain(evals: torch.Tensor, draws: torch.Tensor, targets) -> tor
     return evals
 
 
-def _smudge_launch(b: torch.Tensor, rows: int, s: torch.Tensor, s_stride: int, s_len: int,
-                   sign: torch.Tensor, sign_off: int, sign_stride: int, pos_bit: int,
-                   draws: int, targets: int) -> None:
+def _smudge_launch(b: torch.Tensor, rows: int, draws: torch.Tensor, targets: int) -> None:
     row_bytes = b.shape[-2] * DIGITS  # a ciphertext: n + 1 rows of 88 digits
+    count, length = draws.shape
     if rows:
         _build.launch("cls_carry_fold_smudge", b, row_bytes - DIGITS, row_bytes, rows,
-                      s, s_stride, s_len, sign, sign_off, sign_stride, pos_bit, draws, targets)
+                      draws, length, length - 1, count, targets)
         LAUNCHES["carry_fold"] += 1
 
 
@@ -247,8 +246,7 @@ def smudge_draws(evals: torch.Tensor, draws: torch.Tensor, targets) -> torch.Ten
     _check("evals", evals, torch.uint8, (evals.shape[0], evals.shape[1], DIGITS), evals.device)
     _check("draws", draws, torch.uint8, (count, length), evals.device)
     packed = sum(e << (4 * i) for i, e in enumerate(targets))
-    _smudge_launch(evals, max(targets, default=-1) + 1, draws, length, length - 1,
-                   draws, length - 1, length, 0, count, packed)
+    _smudge_launch(evals, max(targets, default=-1) + 1, draws, packed)
     return evals
 
 
@@ -268,8 +266,8 @@ def smudge_rows(ct: torch.Tensor, s_digits: torch.Tensor,
     if out.shape[-1] != DIGITS or out.dtype != torch.uint8 or out.dim() < 2:
         raise ValueError(f"ct: expected uint8 [..., n+1, {DIGITS}], got {ct.dtype} {tuple(ct.shape)}")
     rows = out.numel() // (out.shape[-2] * DIGITS)
-    _smudge_launch(out, rows, s_digits, DIGITS, DIGITS, sign_positive.view(torch.uint8), 0, 0,
-                   1, 1, 15)
+    draw = torch.cat([s_digits, (~sign_positive).to(torch.uint8).reshape(1)])[None]
+    _smudge_launch(out, rows, draw, 15)
     return out
 
 

@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import itertools
 import json
 import pathlib
 import subprocess
@@ -164,7 +165,9 @@ CRT_OPS = 40
 # K8 (modp.cu), an entry: the 32 x 32 -> 64 bit product (2), its fold to
 # < 2^35 (one wide multiply-add, 2), the 64-bit add (2); its at-s form adds
 # one mulmod a column for w.  K9, a mulmod: the product (2) and
-# aes_core.cuh's fold64_mod_p (7).  K10 (digits.cu), a position: the 64-bit
+# aes_core.cuh's fold64_mod_p (7); its bound counts one mulmod a word
+# written (s^i from s^(i-1), alpha s^i from s^i), the function's need, not
+# the design's square and multiply.  K10 (digits.cu), a position: the 64-bit
 # add of the carry (2), the digit's mask and the carry's shift (2); in the
 # b-row form lo + 16 hi (3), four byte products of p and the errors (8)
 # and the message byte (3); in the MAC-plane form, for each of the four
@@ -195,14 +198,15 @@ def max_abs_err(a, b) -> int:
 QUEUE_CYCLES = 50_000_000  # ~25-28 ms of the card's clock: the host queues the timed launches meanwhile
 
 
-def cuda_ms(fn, reps: int, queued: bool = True) -> float:
-    """Mean milliseconds per call of reps calls of fn, between two CUDA events.
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds per call of reps calls of fn issued back to back,
+    between two CUDA events (a kernel shorter than the host's issue of its
+    launch, ~25-45 us through a wrapper (host_issue), is timed at the
+    host's pace).
 
     queued: the stream first runs a wait kernel (torch.cuda._sleep), so the
     host has queued every launch before the start event runs and the events
-    hold the kernels back to back, not the host's time to issue them (a
-    wrapper takes ~25-40 us to issue a launch: host_issue).  Without it, a
-    kernel shorter than its issue is timed at the host's pace."""
+    hold the kernels back to back, not the host's time to issue them."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -448,16 +452,59 @@ def python_fold(acc, ndigits: int):
     return torch.from_numpy(np.stack(out))
 
 
-def powers_ops(count: int) -> int:
-    """K9's operations for count powers: thread i squares once for each bit
-    of i and multiplies once for each set bit."""
-    return MULMOD_OPS * sum(i.bit_length() + i.bit_count() for i in range(count))
+L2_BYTES = 50 << 20  # the H100's L2
+
+
+def rotating(fn, first: tuple, make, nbytes: int):
+    """A call of fn on the next of several input sets (first, then sets
+    made by make()) of nbytes each, as many as read more than L2_BYTES
+    together, so no timed call finds its inputs in L2."""
+    sets = [first] + [make() for _ in range(L2_BYTES // nbytes + 1)]
+    order = itertools.cycle(sets)
+    return lambda: fn(*next(order))
 
 
 def at_s_ops(rows: int, d: int) -> int:
     """K8's at-s form: the matvec's entries and one mulmod a column for w
     (each thread's start by square and multiply is the design's, not counted)."""
     return MATVEC_OPS * rows * d + MULMOD_OPS * d
+
+
+def b_rows_bytes(rows: int) -> int:
+    """What K10's b-row form moves for rows encryptions: two int32 planes,
+    the error bytes and the digits out, 88 positions each, and the message
+    words."""
+    return rows * (88 * (4 + 4 + 1 + 1) + 8)
+
+
+def copy_floor(nbytes: int) -> dict:
+    """A device copy that moves nbytes (half read, half written), timed as
+    the kernels are: the rate the card's memory gives a plain stream of that
+    size, beside the bytes' bound."""
+    import torch
+
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    ms, queued_ms = cuda_ms(lambda: dst.copy_(src), 20), cuda_ms(lambda: dst.copy_(src), 20, True)
+    return {"ms": ms, "queued_ms": queued_ms, **bound(2 * src.numel(), 0)}
+
+
+def planes_set(gen, n: int) -> tuple:
+    """(int64 planes [5, n+1, 88] < 2^26,): K10's planes form at the
+    stage-wise and sharded paths' shape."""
+    import torch
+
+    return (torch.randint(0, 1 << 26, (5, n + 1, 88), generator=gen, device=DEVICE),)
+
+
+def mac_set(gen, n: int) -> tuple:
+    """(acc_a int64 [4, 5, n, 88], acc_b [4, 5, 88]), both < 2^40: K10's
+    MAC-plane form at the prover's shape."""
+    import torch
+
+    return (torch.randint(0, 1 << 40, (4, 5, n, 88), generator=gen, device=DEVICE),
+            torch.randint(0, 1 << 40, (4, 5, 88), generator=gen, device=DEVICE))
 
 
 def smudge_case(P, ent_key):
@@ -507,9 +554,11 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
     sk = tlwe.key_gen(ent_key, off_setup + 24, P)
     v_lo, v_hi = eval_fused.encrypt_b_planes(crs_key, P.ctr_s, sk, n_enc, n, P.ctr_ct)
     gen = torch.Generator(device=DEVICE).manual_seed(13)
-    planes = torch.randint(0, 1 << 26, (5, n + 1, 88), generator=gen, device=DEVICE)
-    acc_a = torch.randint(0, 1 << 40, (4, 5, n, 88), generator=gen, device=DEVICE)
-    acc_b = torch.randint(0, 1 << 40, (4, 5, 88), generator=gen, device=DEVICE)
+    (planes,), (acc_a, acc_b) = planes_set(gen, n), mac_set(gen, n)
+    planes_sets = rotating(dg.carry_fold, (planes,), lambda: planes_set(gen, n),
+                           8 * planes.numel())
+    mac_sets = rotating(dg.fold_mac_planes, (acc_a, acc_b), lambda: mac_set(gen, n),
+                        8 * (acc_a.numel() + acc_b.numel()))
     evals, draws = smudge_case(P, ent_key)
     return {
         "matvec_mod_p": [
@@ -525,15 +574,15 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
         "powers_mod_p": [
             (f"powers_mod_p: count {d} (launch-bound)", 20,
              lambda: modp.powers_mod_p(s, d), lambda: modp.powers_plain(s, d),
-             bound(8 * (d + 1), powers_ops(d))),
+             bound(8 * (d + 1), MULMOD_OPS * d)),
             (f"the messages form, setup's s^i and alpha s^i: count {d} (launch-bound)", 20,
              lambda: modp.message_powers(s, alpha, d, out=msgs[: 2 * d]),
              lambda: modp.message_powers_plain(s, alpha, d),
-             bound(8 * (2 * d + 2), powers_ops(d) + MULMOD_OPS * d))],
+             bound(8 * (2 * d + 2), MULMOD_OPS * 2 * d))],
         "carry_fold": [
             (f"the planes form, stage-wise and sharded evaluations: [5, {n + 1}, 88] int64", 20,
              lambda: dg.carry_fold(planes), lambda: dg.carry_fold_plain(planes),
-             bound(9 * planes.numel(), FOLD_POS_OPS * planes.numel())),
+             bound(9 * planes.numel(), FOLD_POS_OPS * planes.numel()), planes_sets),
             ("the smudge form, the prover's five draws on four b rows (launch-bound)", 20,
              lambda: dg.smudge_draws(evals, draws, tsnark.SMUDGE_TARGETS),
              lambda: dg.smudge_draws_plain(evals.clone(), draws, tsnark.SMUDGE_TARGETS),
@@ -541,11 +590,11 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
             (f"the MAC-plane form, the prover's epilogue: [4, 5, {n}, 88] + [4, 5, 88]", 20,
              lambda: dg.fold_mac_planes(acc_a, acc_b), lambda: dg.fold_mac_planes_plain(acc_a, acc_b),
              bound(8 * (acc_a.numel() + acc_b.numel()) + 5 * (n + 1) * 88,
-                   MAC_POS_OPS * 5 * (n + 1) * 88)),
+                   MAC_POS_OPS * 5 * (n + 1) * 88), mac_sets),
             (f"the b-row form, setup's b-rows: {n_enc} rows of K4's planes, errors and messages", 20,
              lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs),
              lambda: dg.b_rows_plain(v_lo, v_hi, errs, msgs),
-             bound(n_enc * 88 * (4 + 4 + 1 + 1) + 8 * n_enc, BROW_POS_OPS * n_enc * 88))],
+             bound(b_rows_bytes(n_enc), BROW_POS_OPS * n_enc * 88))],
     }
 
 
@@ -916,27 +965,34 @@ def phase_kernels(results: dict) -> None:
     cases.update(poly_cases(P, ent_key))
     cases.update(schedule_cases(P, crs_key, ent_key))
     for name, shapes in cases.items():
-        for shape, reps, kern, plain, bnd in shapes:
+        for shape, reps, kern, plain, bnd, *sets in shapes:
             want, plain_ms = timed(plain)
             err = max_abs_err(kern(), want)
             del want
-            ms = cuda_ms(kern, reps)
-            ms_issue = cuda_ms(kern, reps, queued=False)
+            run = sets[0] if sets else kern  # timed on input sets that do not fit in L2
+            ms = cuda_ms(run, reps)
+            queued_ms = cuda_ms(run, reps, queued=True)
             worse(name, err)
             # every shape of this kernel keeps its numbers beside the last one's
             earlier = results[name]["cases"] if name in results else []
-            case = {"shape": shape, "ms": ms, "ms_issue": ms_issue, "plain_ms": plain_ms, **bnd}
-            results[name] = {"max_abs_err": errs[name], "ms": ms, "ms_issue": ms_issue,
+            case = {"shape": shape, "ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, **bnd}
+            results[name] = {"max_abs_err": errs[name], "ms": ms, "queued_ms": queued_ms,
                              "plain_ms": plain_ms, **bnd, "library_ms": None,
                              "cases": earlier + [case]}
             print(f"phase kernels: {name} [{shape}] max_abs_err={err} (tolerance 0); "
-                  f"kernel {ms:.4f} ms queued ({ms_issue:.4f} ms issued back to back), plain "
-                  f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-                  f"({100 * bnd['bound_ms'] / ms:.1f} %)")
+                  f"kernel {ms:.4f} ms issued back to back ({100 * bnd['bound_ms'] / ms:.1f} % of "
+                  f"the bound; {queued_ms:.4f} ms queued behind a device wait: "
+                  f"{100 * bnd['bound_ms'] / queued_ms:.1f} %), plain {plain_ms:.3f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
             if name == "keystream_blocks_v1":  # at K1's count
                 at = bnd["bound_ms"] * CF_OPS / BITSLICED_OPS
                 print(f"phase kernels: {name} [{shape}] at K1's {CF_OPS} operations a block: "
                       f"{at:.4f} ms ({100 * at / ms:.1f} %)")
+    copy = copy_floor(b_rows_bytes(2 * P.d + P.m))
+    results["carry_fold"]["b_rows_copy"] = copy
+    print(f"phase kernels: carry_fold [a device copy of the b-row form's bytes] {copy['ms']:.4f} "
+          f"ms issued back to back ({copy['queued_ms']:.4f} ms queued), bound "
+          f"{copy['bound_ms']:.4f} ms ({100 * copy['bound_ms'] / copy['queued_ms']:.1f} % queued)")
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with a reference (max_abs_err={e})")
 
@@ -1113,9 +1169,11 @@ def phase_profile(label: str) -> None:
     v_lo, v_hi = eval_fused.encrypt_b_planes(ent_key, P.ctr_s, sk, n_enc, P.n, P.ctr_ct)
     errs = torch.randint(0, 256, (n_enc, 88), dtype=torch.uint8, device=DEVICE)
     msgs = torch.randint(0, modp.P, (n_enc,), device=DEVICE)
-    acc_a = torch.randint(0, 1 << 40, (4, 5, P.n, 88), device=DEVICE)
-    acc_b = torch.randint(0, 1 << 40, (4, 5, 88), device=DEVICE)
-    planes = torch.randint(0, 1 << 26, (5, P.n + 1, 88), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    mac_sets = rotating(dg.fold_mac_planes, mac_set(gen, P.n), lambda: mac_set(gen, P.n),
+                        8 * 4 * 5 * (P.n + 1) * 88)
+    planes_sets = rotating(dg.carry_fold, planes_set(gen, P.n), lambda: planes_set(gen, P.n),
+                           8 * 5 * (P.n + 1) * 88)
     evals, draws = smudge_case(P, ent_key)
     for tag, kernel, counter, fn, launches in (
             (f"K8 at setup's v [{P.m}, {P.d}]", "matvec_kernel", "matvec_mod_p",
@@ -1128,16 +1186,16 @@ def phase_profile(label: str) -> None:
              lambda: modp.message_powers(s, alpha, P.d), modp.LAUNCHES),
             (f"K10's b-row form at {n_enc} rows", "carry_fold_kernel", "carry_fold",
              lambda: dg.carry_fold_b_rows(v_lo, v_hi, errs, msgs), dg.LAUNCHES),
-            (f"K10's MAC-plane form at [4, 5, {P.n}, 88]", "carry_fold_kernel", "carry_fold",
-             lambda: dg.fold_mac_planes(acc_a, acc_b), dg.LAUNCHES),
+            (f"K10's MAC-plane form at [4, 5, {P.n}, 88], input sets over L2", "carry_fold_kernel",
+             "carry_fold", mac_sets, dg.LAUNCHES),
             ("K10's smudge form, five draws on four rows", "carry_fold_kernel", "carry_fold",
              lambda: dg.smudge_draws(evals, draws, tsnark.SMUDGE_TARGETS), dg.LAUNCHES),
-            (f"K10's planes form at [5, {P.n + 1}, 88] int64", "carry_fold_kernel", "carry_fold",
-             lambda: dg.carry_fold(planes), dg.LAUNCHES)):
+            (f"K10's planes form at [5, {P.n + 1}, 88] int64, input sets over L2",
+             "carry_fold_kernel", "carry_fold", planes_sets, dg.LAUNCHES)):
         fn()
         profiled_line(tag, kernel, counter, lambda: [fn() for _ in range(reps)], reps, label,
                       launches)
-    del ssp, v_lo, v_hi, acc_a
+    del ssp, v_lo, v_hi, mac_sets, planes_sets
     host_issue(label)
     # the release prover after a warm call, and what its polynomial stage
     # launches by kernel name (tools/profile_prover.py); then setup and

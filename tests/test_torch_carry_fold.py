@@ -195,19 +195,19 @@ def mac_load(acc_a: np.ndarray, acc_b: np.ndarray):
     return load
 
 
-def smudge_load(b, draws, targets, pos_bit=0, sign=None):
+def smudge_load(b, draws, targets):
     """The smudge form: b rows (uint8 [rows, 88]) + sigma p s for each draw
-    on the row (draws uint8 [S, L + 1]: L digits and the sign byte, unless
-    sign [S] is given); negative draws as 2^24 - p s and the constant."""
-    s_len = draws.shape[1] - (1 if sign is None else 0)
-    signs = draws[:, -1] if sign is None else sign
+    on the row (draws uint8 [S, L + 1]: L digits and the sign byte, low bit
+    0 positive); negative draws as 2^24 - p s and the constant."""
+    s_len = draws.shape[1] - 1
+    signs = draws[:, -1]
 
     def load(r, p0, g):
         x = run_of(b, r, p0, DIGITS)
         for i, tgt in enumerate(targets):
             E = with_below(run_of(draws[i : i + 1], np.zeros_like(r), p0, s_len))
             on = (r == tgt) if tgt != 15 else np.ones(r.shape, bool)
-            pos = (int(signs[i]) & 1) == pos_bit
+            pos = (int(signs[i]) & 1) == 0
             for j in range(PER):
                 y = p_times(E, j)
                 t = p0 + j
@@ -564,7 +564,7 @@ def test_smudge_draws_at_the_edges(s_kind):
 def test_smudge_one_row_case_matches_jax(positive):
     """lwe.smudge (one draw on every b row of a batch of ciphertexts, the
     sign a bool tensor) against the JAX smudge, and the form's one-row
-    case modelled (target 15: every row; positive iff the bit is 1)."""
+    case modelled (target 15: every row; the draw row as smudge_rows builds it)."""
     n = 4
     rng = np.random.default_rng(int(positive))
     ct = rng.integers(0, 256, size=(3, n + 1, 88), dtype=np.uint8)
@@ -579,6 +579,6 @@ def test_smudge_one_row_case_matches_jax(positive):
                       Params(d=16, m=8, n=n))
     np.testing.assert_array_equal(got.numpy(), want)
     b = ct[:, n].copy()
-    k10_model(smudge_load(b, s[None], (15,), pos_bit=1, sign=np.array([int(positive)])), 3, 88,
-              out=b)
+    draw = np.append(s, np.uint8(not positive))[None]
+    k10_model(smudge_load(b, draw, (15,)), 3, 88, out=b)
     np.testing.assert_array_equal(b, want[:, n])
