@@ -10,8 +10,8 @@
 // Bound on the H100: the cipher.  The conflict-free core of aes_core_cf.cuh
 // takes 224 shared-memory loads and ~450 integer operations a 16-byte
 // block, both near their pipe's rate, ~27 ps a block on the whole card; the
-// 16 bytes either kernel writes a block take 4.8 ps at 3.35 TB/s.  Design:
-// one thread per counter block in a grid-stride loop, one CUDA block of
+// 16 bytes K1 writes a block take 4.8 ps at 3.35 TB/s, K2's 8 bytes 2.4 ps.
+// Design: one thread per counter block in a grid-stride loop, one CUDA block of
 // 1024 threads an SM (the table's window takes 128 KiB of its shared
 // memory), the table staged once per CUDA block, round keys as a kernel
 // parameter.  The table costs 16,384 shared-memory stores a CUDA block, so
@@ -21,9 +21,9 @@
 // Each kernel writes what its callers read, so no elementwise pass follows
 // it.  K1 stores a block's four little-endian words with one 16-byte store:
 // in memory these are the stream's bytes, uint8 [nblocks, 16].  K2 stores
-// the two folds of a block as int64 words in [0, 2^32), {f0, 0, f1, 0}
-// in one 16-byte store; an odd pair count ends with one 8-byte store, so
-// nothing behind out[npairs - 1] is touched (the caller's next row).
+// the two folds of a block as uint32 words, {f0, f1} in one 8-byte store,
+// the type the TPU kernel returns; an odd pair count ends with one 4-byte
+// store, so nothing behind out[npairs - 1] is touched (the caller's next row).
 #include "aes_core_cf.cuh"
 
 using namespace cls;
@@ -67,11 +67,10 @@ keystream_fold_p_kernel(const uint32_t* __restrict__ tables, const __grid_consta
     uint4 w[1];
     aes256_ctr_cf<1>(lane_base, rk, nonce_lo, nonce_hi, ctr, w);
     const uint32_t f0 = fold64_mod_p(w[0].y, w[0].x);
-    uint32_t* o = out + 4 * i;  // int64 words 2i and 2i + 1
     if (2 * i + 1 < npairs)
-      *reinterpret_cast<uint4*>(o) = make_uint4(f0, 0u, fold64_mod_p(w[0].w, w[0].z), 0u);
+      *reinterpret_cast<uint2*>(out + 2 * i) = make_uint2(f0, fold64_mod_p(w[0].w, w[0].z));
     else
-      *reinterpret_cast<uint2*>(o) = make_uint2(f0, 0u);
+      out[2 * i] = f0;
   }
 }
 
@@ -101,7 +100,7 @@ extern "C" int cls_keystream_blocks(const void* tables, const void* rk_host, uin
                 nblocks, static_cast<uint4*>(out), stream);
 }
 
-// out: int64 [npairs], 16-byte aligned.
+// out: uint32 [npairs], 8-byte aligned.
 extern "C" int cls_keystream_fold_p(const void* tables, const void* rk_host, uint32_t nonce_lo,
                                     uint32_t nonce_hi, uint64_t start, int64_t npairs, void* out,
                                     void* stream) {

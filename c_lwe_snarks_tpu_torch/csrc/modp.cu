@@ -13,16 +13,18 @@
 // ops/modp.py:matvec_plain (float64 products over 16-bit halves),
 // poly_eval_plain, powers_plain (doubling) and message_powers_plain.
 //
-// K8's bound on the H100 is the bytes of v, read once (int64 [rows, d]:
-// 5.73 GB for setup's 21,845 x 2^15, 1.71 ms at 3.35 TB/s); its products are
-// a few integer operations an entry, far under the integer rate.  Design: a
-// CUDA block takes kRows consecutive rows and a segment of columns; a thread
-// walks its columns kThreads apart (a warp reads 256 contiguous bytes of a
-// row), takes w[i] once for the block's kRows rows, and adds each 64-bit
-// product v * w (both < 2^32) folded to < 2^35 by 2^32 = 5 (mod p) into a
-// 64-bit sum per row: a thread adds at most ceil(d / kThreads) < 2^29 such
-// terms for d < 2^37, under 2^64 (the wrapper refuses d >= 2^37, a row of
-// 1 TiB).  The sums fold to < 2^35 again, add up a warp by shuffles
+// K8's bound on the H100 is the bytes of v, read once (uint32 [rows, d], as
+// the JAX package holds it: 2.86 GB for setup's 21,845 x 2^15, 0.855 ms at
+// 3.35 TB/s); its products are a few integer operations an entry, far under
+// the integer rate.  Design: a CUDA block takes kRows consecutive rows and a
+// segment of columns; a thread walks its columns kThreads apart (a warp
+// reads 128 contiguous bytes of a row), kUnroll columns of its kRows rows in
+// flight (128 bytes a thread), takes w[i] once for the block's kRows rows,
+// and adds each 64-bit product v * w (both < 2^32) folded to < 2^35 by
+// 2^32 = 5 (mod p) into a 64-bit sum per row: a thread adds at most
+// ceil(d / kThreads) < 2^29 such terms for d < 2^37, under 2^64 (the
+// wrapper refuses d >= 2^37, a row of 512 GiB).  The sums fold to < 2^35
+// again, add up a warp by shuffles
 // (< 2^40) and the block's warps in shared memory (< 2^43), and reduce mod
 // p.  When the row groups alone do not fill the card (t's and the
 // verifier's rows), each row's columns are split over gridDim.y blocks;
@@ -50,7 +52,7 @@ namespace {
 constexpr int kThreads = 256;  // threads of a K8 block: columns it walks at a time
 constexpr int kRows = 4;       // rows a K8 block sums together (w read once for them)
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;     // columns a thread has in flight
+constexpr int kUnroll = 8;     // columns a thread has in flight
 constexpr int kPowThreads = 256;
 
 // x folded by 2^32 = 5 (mod p): for any 64-bit x the result is < 6 * 2^32 < 2^35
@@ -107,7 +109,7 @@ struct WPowers {
 
 template <class W>
 __global__ void __launch_bounds__(kThreads)
-matvec_kernel(const int64_t* __restrict__ v, W w, int64_t rows,
+matvec_kernel(const uint32_t* __restrict__ v, W w, int64_t rows,
               int64_t d, int64_t seg, int64_t* __restrict__ partial,
               unsigned* __restrict__ done, int64_t* __restrict__ out) {
   __shared__ uint64_t warp_sum[kWarps][kRows];
@@ -117,7 +119,7 @@ matvec_kernel(const int64_t* __restrict__ v, W w, int64_t rows,
   const int nr = static_cast<int>(min64(kRows, rows - r0));
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * seg;
   const int64_t c1 = min64(d, c0 + seg);
-  const int64_t* src = v + r0 * d;
+  const uint32_t* src = v + r0 * d;
 
   uint64_t acc[kRows] = {};
   int64_t c = c0 + t;
@@ -130,7 +132,7 @@ matvec_kernel(const int64_t* __restrict__ v, W w, int64_t rows,
       wv[u] = w.next(c + u * kThreads);
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        x[u][r] = r < nr ? static_cast<uint32_t>(__ldg(src + r * d + c + u * kThreads)) : 0u;
+        x[u][r] = r < nr ? __ldg(src + r * d + c + u * kThreads) : 0u;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -141,7 +143,7 @@ matvec_kernel(const int64_t* __restrict__ v, W w, int64_t rows,
     const uint32_t wc = w.next(c);
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
-      if (r < nr) acc[r] += fold35(static_cast<uint64_t>(static_cast<uint32_t>(__ldg(src + r * d + c))) * wc);
+      if (r < nr) acc[r] += fold35(static_cast<uint64_t>(__ldg(src + r * d + c)) * wc);
   }
 
   // the thread's sums < 2^35, a warp's < 2^40, the block's < 2^43
@@ -201,14 +203,14 @@ int launch_matvec(const void* v, W w, int64_t rows, int64_t d, int64_t splits, v
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   matvec_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const int64_t*>(v), w, rows, d, seg, static_cast<int64_t*>(partial),
+      static_cast<const uint32_t*>(v), w, rows, d, seg, static_cast<int64_t*>(partial),
       static_cast<unsigned*>(done), static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// v: int64 [rows, d] (entries < 2^32, d < 2^37), w: int64 [d], splits in
+// v: uint32 [rows, d] (d < 2^37), w: int64 [d] (< 2^32), splits in
 // [1, 65535]: blocks a row's columns are split over; when splits > 1,
 // partial: int64 [rows * splits] and done: int32 [ceil(rows / kRows)]
 // (zeroed here), else both unused; out: int64 [rows].  rows, d > 0.

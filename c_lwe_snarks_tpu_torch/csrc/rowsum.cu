@@ -5,18 +5,20 @@
 // (four byte-plane int8 matmuls on the TPU's matrix unit); the port's plain
 // version is ops/modp.py:gated_rowsum_plain (float64 gemv a row chunk).
 //
-// Bound on the H100: the bytes of the gated rows, read once (v is int64
-// [rows, d]: 8 bytes an entry, 5.73 GB for the prover's 21,844 x 2^15 if
-// every gate were 1).  One addition an entry is far under the integer rate.
-// Design: a thread owns one column, so a warp reads 256 contiguous bytes of
-// a row; a CUDA block owns kThreads columns of kChunkRows rows.  The block
-// compacts its chunk's gated row indices into shared memory (ballot and a
-// prefix over its warps), so rows whose gate is 0 are never read, then
-// walks them kUnroll at a time with independent loads.  Entries are < 2^32
-// and rows < 2^21, so int64 sums are exact.  Each block writes its column
-// sums to a partial [chunks, d]; the last block of a column group to finish
-// (a counter per group, zeroed by the launcher) adds the chunks' partials
-// in chunk order and writes (sum mod p): one launch, deterministic.
+// Bound on the H100: the bytes of the gated rows, read once (v is uint32
+// [rows, d], as the JAX package holds it: 4 bytes an entry, 2.86 GB for the
+// prover's 21,844 x 2^15 if every gate were 1).  One addition an entry is
+// far under the integer rate.  Design: a thread owns one column, so a warp
+// reads 128 contiguous bytes of a row; a CUDA block owns kThreads columns
+// of kChunkRows rows.  The block compacts its chunk's gated row indices
+// into shared memory (ballot and a prefix over its warps), so rows whose
+// gate is 0 are never read, then walks them kUnroll at a time with
+// independent loads: 16 rows of 4 bytes, 64 bytes in flight a thread.
+// Entries are < 2^32 and rows < 2^21, so 64-bit sums are exact.  Each
+// block writes its column sums to a partial [chunks, d]; the last block of
+// a column group to finish (a counter per group, zeroed by the launcher)
+// adds the chunks' partials in chunk order and writes (sum mod p): one
+// launch, deterministic.
 #include "aes_core.cuh"
 
 using namespace cls;
@@ -26,7 +28,7 @@ namespace {
 constexpr int kThreads = 256;    // columns of a CUDA block
 constexpr int kChunkRows = 256;  // rows of a CUDA block (one a thread in the compaction)
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 8;
+constexpr int kUnroll = 16;
 static_assert(kChunkRows == kThreads, "the compaction gives each thread one row");
 
 // x mod p for 0 <= x < 2^53: 2^32 = 5 (mod p), so x = 5 * hi + lo with
@@ -39,7 +41,7 @@ __device__ __forceinline__ int64_t reduce53_mod_p(uint64_t x) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-gated_rowsum_kernel(const int64_t* __restrict__ v, const uint8_t* __restrict__ gate, int64_t rows,
+gated_rowsum_kernel(const uint32_t* __restrict__ v, const uint8_t* __restrict__ gate, int64_t rows,
                     int64_t d, int64_t* __restrict__ partial, unsigned* __restrict__ done,
                     int64_t* __restrict__ out) {
   __shared__ int idx[kChunkRows];
@@ -62,18 +64,18 @@ gated_rowsum_kernel(const int64_t* __restrict__ v, const uint8_t* __restrict__ g
 
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + t;
   if (col < d) {
-    const int64_t* src = v + r0 * d + col;
-    int64_t s = 0;
+    const uint32_t* src = v + r0 * d + col;
+    uint64_t s = 0;
     int k = 0;
     for (; k + kUnroll <= total; k += kUnroll) {
-      int64_t x[kUnroll];
+      uint32_t x[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) x[u] = __ldg(src + idx[k + u] * d);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) s += x[u];
     }
     for (; k < total; ++k) s += __ldg(src + idx[k] * d);
-    partial[static_cast<int64_t>(blockIdx.y) * d + col] = s;
+    partial[static_cast<int64_t>(blockIdx.y) * d + col] = static_cast<int64_t>(s);
   }
 
   // the last block of this column group adds every chunk's partial
@@ -91,7 +93,7 @@ gated_rowsum_kernel(const int64_t* __restrict__ v, const uint8_t* __restrict__ g
 
 }  // namespace
 
-// v: int64 [rows, d] (entries < 2^32, rows < 2^21), gate: uint8 [rows],
+// v: uint32 [rows, d] (rows < 2^21), gate: uint8 [rows],
 // partial: int64 [ceil(rows / 256), d], done: int32 [ceil(d / 256)] (zeroed
 // here), out: int64 [d].  rows and d > 0.
 extern "C" int cls_gated_rowsum_p(const void* v, const void* gate, int64_t rows, int64_t d,
@@ -102,7 +104,7 @@ extern "C" int cls_gated_rowsum_p(const void* v, const void* gate, int64_t rows,
   cudaError_t err = cudaMemsetAsync(done, 0, grid.x * sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   gated_rowsum_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const int64_t*>(v), static_cast<const uint8_t*>(gate), rows, d,
+      static_cast<const uint32_t*>(v), static_cast<const uint8_t*>(gate), rows, d,
       static_cast<int64_t*>(partial), static_cast<unsigned*>(done), static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -225,22 +225,24 @@ def prover_polys(
 
     t's true degree and leading coefficient are read from the device once,
     first; after that nothing here moves data to the host (on the card:
-    K1 for delta, K7 for the row-sum, K6 for v^2 and the division)."""
+    K1 for delta, K7 for the row-sum, K6 for v^2 and the division).  t
+    and v_0 are widened to int64 words once each; K7 reads v as it is."""
     d, m = params.d, params.m
-    t_degree, t_lead = ntt.poly_degree_and_lead(ssp.t)
+    t = ssp.t.to(torch.int64)
+    t_degree, t_lead = ntt.poly_degree_and_lead(t)
     delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
     if mesh is None:
         rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
     else:
         gate = F.pad(witness[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
         rowsum, v0 = pmesh.gated_rowsum_sharded(ssp, gate, mesh), pmesh.row_zero(ssp, mesh)
-    w = modp.addmod_p(modp.mulmod_p(delta, ssp.t), rowsum)
-    v = modp.addmod_p(v0, w)
+    w = modp.addmod_p(modp.mulmod_p(delta, t), rowsum)
+    v = modp.addmod_p(v0.to(torch.int64), w)
     num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
     num[0] = modp.submod_p(num[0], 1)
     # t is whole on every rank of a mesh, so every rank takes the same branch
     # of the division and issues the same collectives
-    h = ntt.poly_div_exact_mod_p(num, ssp.t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
+    h = ntt.poly_div_exact_mod_p(num, t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
     return delta, w, v, h
 
 

@@ -19,10 +19,11 @@ rounds 1..14; its plain version runs the same gates on tensors.
 
 Each kernel writes what its callers read: K1 and K5 the stream's bytes,
 uint8 ``[nblocks, 16]`` (``keystream_words`` is the same memory viewed as
-words), K2 int64 words in [0, 2^32), the type of the mod-p glue, straight
-into the caller's tensor if it passes ``out=``.  No torch pass follows a
-kernel, with one exception: ``keystream_words`` widens K1's words to int64
-after the launch.  Nothing in the protocol calls it on a CUDA key.
+words), K2 uint32 words < p, the type of the SSP's v (and of the TPU
+kernel's output), straight into the caller's tensor if it passes
+``out=``.  No torch pass follows a kernel, with one exception:
+``keystream_words`` widens K1's words to int64 after the launch.  Nothing
+in the protocol calls it on a CUDA key.
 
 Each wrapper takes the plain version for a key on the CPU and launches
 the CUDA kernel for a key on a CUDA device; ``LAUNCHES`` counts the
@@ -177,28 +178,28 @@ def keystream_bytes_plain(key: AESKey, byte_offset: int, nbytes: int) -> torch.T
 
 
 def check_fold_out(out: torch.Tensor, npairs: int, device: torch.device) -> None:
-    """Raise unless ``out`` can take K2's folds in place: int64 [npairs],
-    contiguous, on the key's device, 16-byte aligned (the kernel stores 16
+    """Raise unless ``out`` can take K2's folds in place: uint32 [npairs],
+    contiguous, on the key's device, 8-byte aligned (the kernel stores 8
     bytes an AES block).  No quiet copy is made for any other tensor."""
-    if out.dtype != torch.int64 or tuple(out.shape) != (npairs,):
-        raise ValueError(f"out: expected int64 ({npairs},), got {out.dtype} {tuple(out.shape)}")
+    if out.dtype != torch.uint32 or tuple(out.shape) != (npairs,):
+        raise ValueError(f"out: expected uint32 ({npairs},), got {out.dtype} {tuple(out.shape)}")
     if out.device != device or not out.is_contiguous():
         raise ValueError(f"out: expected a contiguous tensor on {device}, got one on "
                          f"{out.device} with strides {out.stride()}")
-    if out.data_ptr() % 16:
-        raise ValueError("out: expected a 16-byte aligned tensor")
+    if out.data_ptr() % 8:
+        raise ValueError("out: expected an 8-byte aligned tensor")
 
 
 def keystream_fold_p_plain(
     key: AESKey, start_ctr: int, npairs: int, out: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """int64 [npairs]: (w[2k+1] * 2^32 + w[2k]) mod p over the stream,
-    written into ``out`` if given."""
+    """uint32 [npairs]: (w[2k+1] * 2^32 + w[2k]) mod p over the stream,
+    written into ``out`` if given (the TPU kernel's type)."""
     if out is not None:
         check_fold_out(out, npairs, key.device)
     w = keystream_words_plain(key, start_ctr, -(-npairs // 2))[: 2 * npairs]
     w = w.reshape(npairs, 2)
-    folds = (w[:, 1] * 5 + w[:, 0]) % ((1 << 32) - 5)
+    folds = ((w[:, 1] * 5 + w[:, 0]) % ((1 << 32) - 5)).to(torch.uint32)
     return folds if out is None else out.copy_(folds)
 
 
@@ -300,10 +301,10 @@ def keystream_words(key: AESKey, start_ctr: int, nblocks: int) -> torch.Tensor:
 def keystream_fold_p(
     key: AESKey, start_ctr: int, npairs: int, out: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """int64 [npairs] mod-p folds of consecutive u64-LE stream words.
+    """uint32 [npairs] mod-p folds of consecutive u64-LE stream words.
 
     K2: on a CUDA key the fold runs inside the cipher kernel, so the raw
-    keystream never reaches device memory, and the kernel writes the int64
+    keystream never reaches device memory, and the kernel writes the uint32
     words themselves.  ``out``, if given, receives them in place (see
     ``check_fold_out``; anything else raises) and is returned."""
     _check_ctr(start_ctr, npairs)
@@ -311,7 +312,7 @@ def keystream_fold_p(
         return keystream_fold_p_plain(key, start_ctr, npairs, out)
     _require_cuda(key)
     if out is None:
-        out = torch.empty(npairs, dtype=torch.int64, device=key.device)
+        out = torch.empty(npairs, dtype=torch.uint32, device=key.device)
     check_fold_out(out, npairs, key.device)
     if npairs:
         _build.launch(

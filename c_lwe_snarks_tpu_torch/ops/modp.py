@@ -6,7 +6,10 @@ value in [0, 2^32).  Every product below is split so that no
 intermediate reaches 2^63, and every result is the canonical residue in
 [0, p) — the same value the JAX package computes with its uint32 tricks
 (including ``add_u32_mod_p``'s double-wrap window, which exact int64
-arithmetic covers by construction).
+arithmetic covers by construction).  The SSP's coefficient matrices are
+the exception: ``gated_rowsum_mod_p``, ``matvec_mod_p`` and
+``poly_eval_mod_p`` read uint32 rows, as the JAX package holds them, on
+every device (any other type raises ValueError), and return int64 words.
 
 On a CUDA tensor these functions run hand-written kernels, and
 ``LAUNCHES`` counts their launches: the gated row-sum is K7
@@ -28,7 +31,7 @@ from . import _build
 
 P = (1 << 32) - 5  # plaintext modulus (GAMMA_P)
 
-# rows per float64 chunk in the contractions: bounds the temporary at
+# rows per chunk in the contractions: bounds each widened temporary at
 # CHUNK x d x 8 bytes (256 MiB at d = 2^15)
 _CHUNK = 1024
 # rows a CUDA block of K7 sums (csrc/rowsum.cu: kChunkRows, also its columns)
@@ -39,8 +42,8 @@ ROWSUM_CHUNK_ROWS = 256
 MATVEC_ROWS = 4
 MATVEC_MIN_SEGMENT = 2048
 MATVEC_FILL_BLOCKS = 1056
-# K8's per-thread sums are exact while d < 2^37: a row of 2^37 int64
-# entries is 1 TiB, more than any card holds
+# K8's per-thread sums are exact while d < 2^37: a row of 2^37 uint32
+# entries is 512 GiB, more than any card holds
 MATVEC_MAX_D = 1 << 37
 # columns a float64 chunk of matvec_plain sums: each half-product sum stays
 # below 2^53 for fewer than 2^21 columns
@@ -189,22 +192,32 @@ def poly_eval_plain(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def poly_eval_mod_p(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Evaluate polynomial(s) at scalar s: coeffs [..., d] -> [...] mod p.
+    """Evaluate polynomial(s) at scalar s: coeffs uint32 [..., d] -> int64
+    [...] mod p.
 
     K8's at-s form: on a CUDA tensor one launch, each polynomial a row and
     w = s^i made in the block from s read on the device (no powers
-    buffer); coeffs must be contiguous int64 there (else ValueError).  On
-    the CPU, ``poly_eval_plain``."""
+    buffer); coeffs must be contiguous there (else ValueError).  On the
+    CPU, ``poly_eval_plain``."""
+    _check_uint32(coeffs)
     if coeffs.device.type == "cpu":
         return poly_eval_plain(coeffs, s)
     _check_scalar("s", s, coeffs.device)
     return _matvec_launch("cls_matvec_at_s_mod_p", coeffs, s.reshape(1))
 
 
-def gated_rowsum_plain(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """K7's plain version: one float64 vector-matrix product per row chunk.
+def _check_uint32(v: torch.Tensor) -> None:
+    """K7's and K8's rows are the SSP's uint32 coefficients on every device:
+    no wrapper converts them (an int64 copy of the release v is 5.7 GB)."""
+    if v.dtype != torch.uint32:
+        raise ValueError(f"v: expected uint32 coefficients, got {v.dtype}")
 
-    v: int64 [m, d] (entries < p); gate: 0/1 [m].  A 0/1-weighted sum of
+
+def gated_rowsum_plain(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """K7's plain version: one float64 vector-matrix product per row chunk,
+    each chunk widened on its own.
+
+    v: integer [m, d] (entries < p); gate: 0/1 [m].  A 0/1-weighted sum of
     m < 2^21 words is < 2^53, so it is exact.
     """
     m, d = v.shape
@@ -220,15 +233,16 @@ def gated_rowsum_plain(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
 def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """sum_{i : gate_i} v[i, :] mod p — the witness row selection.
 
-    v: int64 [m, d] (entries < p); gate: 0/1 uint8 or bool [m].  K7: on a
-    CUDA tensor, one launch of ``csrc/rowsum.cu``, which reads only the
-    gated rows; v must be contiguous there (else ValueError).  On the CPU,
-    ``gated_rowsum_plain``."""
+    v: uint32 [m, d] (entries < p); gate: 0/1 uint8 or bool [m]; returns
+    int64 [d].  K7: on a CUDA tensor, one launch of ``csrc/rowsum.cu``,
+    which reads only the gated rows; v must be contiguous there (else
+    ValueError).  On the CPU, ``gated_rowsum_plain``."""
     m, d = v.shape
+    _check_uint32(v)
     if v.device.type == "cpu":
         return gated_rowsum_plain(v, gate)
-    if v.dtype != torch.int64 or not v.is_contiguous() or m >= 1 << 21:
-        raise ValueError(f"v: expected a contiguous int64 [m < 2^21, d], got {v.dtype} "
+    if not v.is_contiguous() or m >= 1 << 21:
+        raise ValueError(f"v: expected a contiguous uint32 [m < 2^21, d], got "
                          f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
     if gate.shape != (m,) or gate.device != v.device:
         raise ValueError(f"gate: expected [{m}] on {v.device}, got {tuple(gate.shape)} on {gate.device}")
@@ -246,10 +260,11 @@ def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
 def matvec_plain(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K8's plain version: float64 products over 16-bit halves.
 
-    v: int64 [..., m, d]; w: int64 [d]; entries < p.  Both operands split
-    into 16-bit halves; each of the four half-products sums fewer than
-    2^21 terms below 2^32 in a column chunk, so every float64 sum stays
-    below 2^53 (exact); the chunks' residues are added mod p.
+    v: integer [..., m, d], widened chunk by chunk; w: int64 [d]; entries
+    < p.  Both operands split into 16-bit halves; each of the four
+    half-products sums fewer than 2^21 terms below 2^32 in a column chunk,
+    so every float64 sum stays below 2^53 (exact); the chunks' residues
+    are added mod p.
     """
     d = v.shape[-1]
     rows = v.reshape(-1, d)
@@ -258,7 +273,7 @@ def matvec_plain(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         wc = w[c0 : c0 + _MATVEC_PLAIN_COLS]
         wp = torch.stack([wc & 0xFFFF, wc >> 16], dim=1).to(torch.float64)  # [cols, 2]
         for lo in range(0, rows.shape[0], _CHUNK):
-            vc = rows[lo : lo + _CHUNK, c0 : c0 + _MATVEC_PLAIN_COLS]
+            vc = rows[lo : lo + _CHUNK, c0 : c0 + _MATVEC_PLAIN_COLS].to(torch.int64)
             c_lo = ((vc & 0xFFFF).to(torch.float64) @ wp).to(torch.int64)  # [r, 2]
             c_hi = ((vc >> 16).to(torch.float64) @ wp).to(torch.int64)
             mid = (c_lo[:, 1] + c_hi[:, 0]) % P  # weight 2^16
@@ -281,11 +296,12 @@ def matvec_splits(rows: int, d: int) -> int:
 def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_i v[..., r, i] * w[i] mod p — rows of a mod-p matvec, any d.
 
-    v: int64 [..., m, d]; w: int64 [d]; entries < p.  Returns int64
+    v: uint32 [..., m, d]; w: int64 [d]; entries < p.  Returns int64
     [..., m] in [0, p).  K8: on a CUDA tensor, one launch of
-    ``csrc/modp.cu``, which reads v once; v and w must be contiguous int64
-    there (else ValueError).  On the CPU, ``matvec_plain``."""
+    ``csrc/modp.cu``, which reads v once; v and w must be contiguous there
+    (else ValueError).  On the CPU, ``matvec_plain``."""
     d = v.shape[-1]
+    _check_uint32(v)
     if v.device.type == "cpu":
         return matvec_plain(v, w)
     if w.dtype != torch.int64 or w.shape != (d,) or w.device != v.device or not w.is_contiguous():
@@ -297,8 +313,8 @@ def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _matvec_launch(name: str, v: torch.Tensor, operand: torch.Tensor) -> torch.Tensor:
     """One K8 launch over the rows of v (w or s as the operand)."""
     d = v.shape[-1]
-    if v.dtype != torch.int64 or not v.is_contiguous() or d >= MATVEC_MAX_D:
-        raise ValueError(f"v: expected a contiguous int64 [..., m, d < 2^37], got {v.dtype} "
+    if not v.is_contiguous() or d >= MATVEC_MAX_D:
+        raise ValueError(f"v: expected a contiguous uint32 [..., m, d < 2^37], got "
                          f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
     rows = v.numel() // d if d else 0
     if rows == 0 or d == 0:

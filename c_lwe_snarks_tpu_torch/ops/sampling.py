@@ -70,7 +70,7 @@ def keystream_blocks(key: PRGKey, start_ctr: int, nblocks: int) -> torch.Tensor:
 def keystream_fold_p(
     key: PRGKey, start_ctr: int, npairs: int, out: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """int64 [npairs]: (word[2k+1] * 2^32 + word[2k]) mod p (K2), written
+    """uint32 [npairs]: (word[2k+1] * 2^32 + word[2k]) mod p (K2), written
     into ``out`` if given (``aes.check_fold_out``)."""
     return aes.keystream_fold_p(key.aes, start_ctr, npairs, out)
 

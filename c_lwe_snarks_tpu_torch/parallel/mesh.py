@@ -26,6 +26,9 @@ The collectives, and the bound each keeps:
 * setup's rows and v_i(s): one ``all_gather`` of the parts, each padded
   to the chunk for it and trimmed after.
 
+Rows of the SSP (uint32, as in the JAX package) ride every collective as
+their int32 view, the same bytes: gloo has no uint32 (``_wire``).
+
 Every rank issues the same collectives in the same order, and no rank
 branches on its own data before one.
 """
@@ -64,6 +67,12 @@ def axis(mesh: DeviceMesh) -> tuple:
     return mesh.get_group(), mesh.get_local_rank(), mesh.size()
 
 
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """x as a collective carries it: a uint32 tensor as its int32 view (the
+    same bytes; gloo refuses uint32), any other as it is."""
+    return x.view(torch.int32) if x.dtype == torch.uint32 else x
+
+
 def gather_rows(part: torch.Tensor, total: int, mesh: DeviceMesh) -> torch.Tensor:
     """Every rank's rows of a [total, ...] tensor split by the chunk rule,
     concatenated on every rank: one ``all_gather`` of the parts padded to
@@ -71,18 +80,19 @@ def gather_rows(part: torch.Tensor, total: int, mesh: DeviceMesh) -> torch.Tenso
     group, _, world = axis(mesh)
     chunk = -(-total // world)
     tail = tuple(part.shape[1:])
-    padded = F.pad(part, (0, 0) * len(tail) + (0, chunk - part.shape[0])).contiguous()
-    out = torch.empty((world, chunk) + tail, dtype=part.dtype, device=part.device)
+    wire = _wire(part)
+    padded = F.pad(wire, (0, 0) * len(tail) + (0, chunk - part.shape[0])).contiguous()
+    out = torch.empty((world, chunk) + tail, dtype=wire.dtype, device=part.device)
     dist.all_gather(list(out.unbind(0)), padded, group=group)
-    return out.reshape((world * chunk,) + tail)[:total]
+    return out.reshape((world * chunk,) + tail)[:total].view(part.dtype)
 
 
 def row_zero(ssp: tssp.SSP, mesh: DeviceMesh) -> torch.Tensor:
-    """v_0 of a row-sharded SSP on every rank, broadcast from rank 0, which
-    holds row 0 by the chunk rule."""
+    """v_0 (uint32 [d]) of a row-sharded SSP on every rank, broadcast from
+    rank 0, which holds row 0 by the chunk rule."""
     group, rank, _ = axis(mesh)
     v0 = ssp.v[0].clone() if rank == 0 else torch.empty_like(ssp.t)
-    dist.broadcast(v0, src=dist.get_global_rank(group, 0), group=group)
+    dist.broadcast(_wire(v0), src=dist.get_global_rank(group, 0), group=group)
     return v0
 
 
@@ -95,7 +105,7 @@ def random_ssp_part(
     rank: int, world: int, key: sampling.PRGKey, byte_offset: int, params: Params
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """The rank's rows of random_ssp: (witness bits uint8 [m], v rows [lo, hi)
-    int64 [hi - lo, d], their gated mod-p column sum int64 [d], lo).
+    uint32 [hi - lo, d], their gated mod-p column sum int64 [d], lo).
 
     Row i of v is 8d stream bytes from block ``ctr0 + i * d / 2``; the
     rank's K2 launches start at its first row (``ssp.gen_v``)."""
@@ -112,13 +122,12 @@ def random_ssp_sharded(
 
     Returns the witness bits and an SSP whose t is whole on every rank and
     whose v holds the rank's rows, starting at ``row0``.  The partial
-    column sums are < p each: one int64 ``all_reduce`` and a ``% p``."""
+    column sums are < p each: one int64 ``all_reduce``, ``% p``, then
+    ``ssp.finish_t``."""
     group, rank, world = axis(mesh)
     wits, v, t, lo = random_ssp_part(rank, world, key, byte_offset, params)
     dist.all_reduce(t, group=group)
-    t = t % modp.P
-    t[0] = modp.submod_p(t[0], 1)
-    return wits, tssp.SSP(t=t, v=v, row0=lo)
+    return wits, tssp.SSP(t=tssp.finish_t(t % modp.P), v=v, row0=lo)
 
 
 def v_at_s_sharded(

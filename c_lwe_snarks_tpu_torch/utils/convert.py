@@ -1,8 +1,9 @@
 """State carried across packages: numpy arrays <-> the port's dataclasses.
 
 The JAX package's objects enter as numpy arrays (``np.asarray`` of each
-field), so this module needs no jax.  Words become int64 tensors, digit
-rows uint8 tensors, on the card unless the caller names another device.
+field), so this module needs no jax.  Words become int64 tensors, the
+SSP's coefficients uint32 tensors (the JAX package's type), digit rows
+uint8 tensors, on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from ..models import snark as tsnark
 from ..models import ssp as tssp
+from ..ops import modp
 
 
 def _words(x, device) -> torch.Tensor:
@@ -22,9 +24,17 @@ def _digits(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, dtype=np.uint8)[..., :88], device=device)
 
 
+def _coeffs(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if ((x < 0) | (x >= modp.P)).any():
+        raise ValueError("SSP coefficients must be reduced mod p")
+    return torch.tensor(x.astype(np.uint32), device=device)
+
+
 def ssp_from_numpy(t, v, device="cuda") -> tssp.SSP:
-    """t [d], v [m, d] words -> SSP (int64 tensors)."""
-    return tssp.SSP(t=_words(t, device), v=_words(v, device))
+    """t [d], v [m, d] coefficients < p (the JAX package's uint32 arrays as
+    they are) -> SSP (uint32 tensors)."""
+    return tssp.SSP(t=_coeffs(t, device), v=_coeffs(v, device))
 
 
 def crs_from_numpy(seed: bytes, b_s, b_as, b_t, b_v, device="cuda") -> tsnark.CRS:

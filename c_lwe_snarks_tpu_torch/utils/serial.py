@@ -5,7 +5,9 @@
   || v-section ((m-1) x 92).
 * VRS = alpha, beta, s as 8-byte LE words || sk (n x 92).
 * Proof = 5 full ciphertexts h, hat_h, hat_v, v_w, b_w, each (n+1) x 92.
-* SSP buffer = t then v_0..v_{m-1}, each d uint64-LE coefficients.
+* SSP buffer = t then v_0..v_{m-1}, each d uint64-LE coefficients; the
+  readers narrow them to the SSP's uint32 after checking each is < p, and
+  the writers widen them back, so the bytes are the reference's.
 
 Stored rows are the 88 live digits zero-padded to 92 bytes.  The readers
 put their tensors on the card unless the caller names another device.
@@ -123,10 +125,11 @@ def ssp_to_buffer(ssp: tssp.SSP, params: Params) -> bytes:
 
 
 def _reduced_words(words: np.ndarray, params: Params) -> np.ndarray:
-    """uint64 file words -> int64, refusing a coefficient >= p."""
+    """uint64 file words -> uint32 (the SSP's type), refusing a coefficient
+    >= p."""
     if (words >= params.p).any():
         raise ValueError("SSP coefficients must be reduced mod p")
-    return words.astype(np.int64)
+    return words.astype(np.uint32)
 
 
 def ssp_from_buffer(buf: bytes, params: Params, device="cuda") -> tssp.SSP:
@@ -163,7 +166,7 @@ def ssp_read_stream(
     tensors; the host holds one chunk at a time."""
     d, m = params.d, params.m
     words = np.memmap(path, dtype="<u8", mode="r", shape=(m + 1, d))
-    rows = torch.empty(m + 1, d, dtype=torch.int64, device=device)
+    rows = torch.empty(m + 1, d, dtype=torch.uint32, device=device)
     for lo in range(0, m + 1, rows_per_chunk):
         chunk = _reduced_words(np.asarray(words[lo : lo + rows_per_chunk]), params)
         rows[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(device)

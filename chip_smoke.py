@@ -46,8 +46,11 @@ non-zero, and only a full pass prints the final JSON line):
    (K1..K4, K6..K10) as often as planned (K8 3, K9 1, K10 5); run setup's
    message schedule, the prover's evaluations and smudging and the
    verifier once more under ``torch.cuda.set_sync_debug_mode("error")``
-   (no host sync);
+   (no host sync); check that the SSP is uint32 on the card, as in the JAX
+   package, and print the peak device memory beside the int64 SSP's;
    then the same run five more times for the spread of the stage walls;
+   then one run at d = 2^16, m = 43,690 (``phase_d16``, the counters and
+   the peak-memory counter reset): it verifies and rejects a tampered h;
 5. walk the stage-wise path at release parameters with the counters reset
    again: write CRS, VRS and proof to files, read them back, probe the
    reloaded CRS and proof, prove stage by stage from the reloaded CRS
@@ -118,6 +121,11 @@ SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release
 # verifier's two rows in one; K9 setup's messages; K10 setup's b-rows, the
 # prover's epilogue and its five smudges, the verifier's two decrypt folds
 RELEASE_LAUNCHES = {"matvec_mod_p": 3, "powers_mod_p": 1, "carry_fold": 5}
+# the release run's peak device memory with the SSP held as int64, as
+# PERF.md section 5 records it (NVIDIA H100 80GB HBM3); uint32 halves v,
+# 5.33 -> 2.67 GiB
+INT64_SSP_PEAK_GIB = 6.36
+D16 = {"d": 1 << 16, "m": 43690}  # m = floor(2d / 3), the release profile's ratio
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.  The
 # sheet gives no integer ALU rate: 67 TFLOP/s of float32 is 2 flops on 128
@@ -188,6 +196,18 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def same_words(a, b) -> bool:
+    """Bit-equal tensors of one type and shape (uint32 compared as its int32
+    view: torch's uint32 is a storage type)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
 def max_abs_err(a, b) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
@@ -195,6 +215,7 @@ def max_abs_err(a, b) -> int:
     return int((a.to(b.device).long() - b.long()).abs().max())
 
 
+SENTINEL = (1 << 32) - 7  # a uint32 word >= p: no fold of K2 takes it
 QUEUE_CYCLES = 50_000_000  # ~25-28 ms of the card's clock: the host queues the timed launches meanwhile
 
 
@@ -355,26 +376,27 @@ def poly_cases(P, ent_key) -> dict:
     v = tsnark.prover_polys(ent_key, off_prove, ssp, wits, P)[2]
     num = ntt.poly_mul_mod_p(v, v)
     num[0] = modp.submod_p(num[0], 1)
-    degree, lead = ntt.poly_degree_and_lead(ssp.t)
+    t = ssp.t.to(torch.int64)  # the division's words, as the prover widens them
+    degree, lead = ntt.poly_degree_and_lead(t)
     check(degree == d - 1, f"release t has degree {degree}")
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     qs = torch.tensor(ntt.NTT_PRIMES, device=DEVICE).reshape(3, 1, 1)
     x = (torch.randint(0, 1 << 31, (3, 64, 256), generator=gen, device=DEVICE) % qs).contiguous()
     q_max = (qs - 1).expand(3, 2, d).contiguous()
     p_max = torch.full((d,), modp.P - 1, dtype=torch.int64, device=DEVICE)
-    t_rev = torch.flip(ssp.t, (0,))
+    t_rev = torch.flip(t, (0,))
     s_quarter = torch.randint(0, modp.P, (d // 4,), generator=gen, device=DEVICE)
-    all_max = torch.full((tssp.TILE, d), modp.P - 1, dtype=torch.int64, device=DEVICE)
+    all_max = torch.full((tssp.TILE, d), modp.P - 1, dtype=torch.uint32).to(DEVICE)
     ones = torch.ones(tssp.TILE, dtype=torch.uint8, device=DEVICE)
     n16, n15 = 2 * d, d
 
-    def k7_bound(gate, cols):
+    def k7_bound(gate, cols):  # the gated uint32 rows and the gates in, int64 sums out
         gated = int(gate.sum())
-        return bound(8 * gated * cols + gate.numel() + 8 * cols, 2 * gated * cols)
+        return bound(4 * gated * cols + gate.numel() + 8 * cols, 2 * gated * cols)
 
     def div(k6: bool):
         with contextlib.nullcontext() if k6 else plain_k6():
-            return ntt.poly_div_exact_mod_p(num, ssp.t, d, den_degree=degree, den_lead=lead)
+            return ntt.poly_div_exact_mod_p(num, t, d, den_degree=degree, den_lead=lead)
 
     # the Newton launch at the release levels: 2 k = 2,048 of t's reversed
     # entries, levels n = 2 ... 4,096; one release level above it, n = 2^16
@@ -564,13 +586,13 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
         "matvec_mod_p": [
             (f"t(s) at setup: [1, {d}]", 20,
              lambda: modp.matvec_mod_p(t_row, powers), lambda: modp.matvec_plain(t_row, powers),
-             bound(8 * (2 * d + 1), MATVEC_OPS * d)),
+             bound(4 * d + 8 * (d + 1), MATVEC_OPS * d)),
             (f"the at-s form, the verifier's t(s) and v_0(s): [2, {d}] (launch-bound)", 20,
              lambda: modp.poly_eval_mod_p(rows2, s), lambda: modp.poly_eval_plain(rows2, s),
-             bound(8 * (2 * d + 1 + 2), at_s_ops(2, d))),
+             bound(4 * 2 * d + 8 * (1 + 2), at_s_ops(2, d))),
             (f"setup's v_i(s): v [{m}, {d}]", 10,
              lambda: modp.matvec_mod_p(ssp.v, powers), lambda: modp.matvec_plain(ssp.v, powers),
-             bound(8 * (m * d + d + m), MATVEC_OPS * m * d))],
+             bound(4 * m * d + 8 * (d + m), MATVEC_OPS * m * d))],
         "powers_mod_p": [
             (f"powers_mod_p: count {d} (launch-bound)", 20,
              lambda: modp.powers_mod_p(s, d), lambda: modp.powers_plain(s, d),
@@ -660,8 +682,9 @@ def redesign_edges(worse, gen) -> None:
             want += [w * 2718281828 % modp.P for w in want]
             worse("powers_mod_p", max_abs_err(got.cpu(), torch.tensor(want)))
         for rows, d8 in ((2, 1), (2, 7), (2, 1 << 15), (1, (1 << 21) + 8)):
-            v8 = torch.randint(0, modp.P, (rows, d8), generator=gen).to(DEVICE)
+            v8 = torch.randint(0, modp.P, (rows, d8), generator=gen)
             v8[0] = pm1
+            v8 = v8.to(torch.uint32).to(DEVICE)
             got = modp.poly_eval_mod_p(v8, st)
             worse("matvec_mod_p", max_abs_err(got, modp.poly_eval_plain(v8, st)))
             if d8 < 8:
@@ -781,22 +804,26 @@ def phase_kernels(results: dict) -> None:
     # its own tensor and, with out=, into a slice between sentinels
     for start, npairs in ((3, 1), ((1 << 32) - 1, 2), ((1 << 32) - 5, 2001), ((1 << 32) + 9, 2001)):
         want = aes.keystream_fold_p_plain(k, start, npairs)
-        worse("keystream_fold_p", max_abs_err(aes.keystream_fold_p(k, start, npairs), want))
-        guarded = torch.full((npairs + 4,), -7, dtype=torch.int64, device=DEVICE)
+        got = aes.keystream_fold_p(k, start, npairs)
+        check(got.dtype == want.dtype == torch.uint32, "K2 writes uint32 folds")
+        worse("keystream_fold_p", max_abs_err(got, want))
+        guarded = torch.full((npairs + 4,), SENTINEL, dtype=torch.uint32).to(DEVICE)
         got = aes.keystream_fold_p(k, start, npairs, out=guarded[2 : 2 + npairs])
         check(got.data_ptr() == guarded[2:].data_ptr(), "K2 returns the out= tensor")
         worse("keystream_fold_p", max_abs_err(guarded[2 : 2 + npairs], want))
-        check(bool((guarded[:2] == -7).all() and (guarded[2 + npairs:] == -7).all()),
+        ends = guarded.cpu().tolist()
+        check(ends[:2] == ends[2 + npairs:] == [SENTINEL] * 2,
               f"K2 wrote outside out= (npairs={npairs})")
     refused = 0
-    for bad in (torch.empty(9, dtype=torch.int64, device=DEVICE)[1:],  # 8 bytes off a 16-byte line
+    for bad in (torch.empty(9, dtype=torch.uint32, device=DEVICE)[1:],  # 4 bytes off an 8-byte line
                 torch.empty(8, dtype=torch.int32, device=DEVICE),
-                torch.empty(16, dtype=torch.int64, device=DEVICE)[::2]):
+                torch.empty(8, dtype=torch.int64, device=DEVICE),
+                torch.empty(16, dtype=torch.uint32, device=DEVICE)[::2]):
         try:
             aes.keystream_fold_p(k, 0, 8, out=bad)
         except ValueError:
             refused += 1
-    check(refused == 3, "K2 took a misaligned, wrongly typed or strided out=")
+    check(refused == 4, "K2 took a misaligned, wrongly typed (int64) or strided out=")
     # K3: k = 5 lanes, offsets with lead 0, 8 and a block-aligned one
     gen = torch.Generator().manual_seed(3)
     n = 6
@@ -848,11 +875,11 @@ def phase_kernels(results: dict) -> None:
     pm1 = modp.P - 1
     for rows, d8 in ((1, 1), (3, 7), (5, 8), (2, 33), (21, 1 << 15), (1, (1 << 15) + 1),
                      (1, (1 << 21) + 8), (9, 40000), (4229, 16)):
-        v8 = torch.full((rows, d8), pm1, dtype=torch.int64, device=DEVICE)
+        v8 = torch.full((rows, d8), pm1, dtype=torch.uint32).to(DEVICE)
         for w8 in (torch.full((d8,), pm1, dtype=torch.int64, device=DEVICE),
                    torch.randint(0, modp.P, (d8,), generator=gen).to(DEVICE)):
             worse("matvec_mod_p", max_abs_err(modp.matvec_mod_p(v8, w8), modp.matvec_plain(v8, w8)))
-        v8.random_(0, modp.P, generator=None)
+        v8 = torch.randint(0, modp.P, (rows, d8), generator=gen).to(torch.uint32).to(DEVICE)
         worse("matvec_mod_p", max_abs_err(modp.matvec_mod_p(v8, w8), modp.matvec_plain(v8, w8)))
     for s9 in (0, 1, pm1, 3141592653):
         for count in (1, 2, 3, 1000, (1 << 15) + 1):
@@ -917,7 +944,7 @@ def phase_kernels(results: dict) -> None:
     coeffs = torch.randint(0, 1 << 32, (5, terms), generator=gen).to(DEVICE)
     sk = torch.randint(0, 256, (n, 88), generator=gen, dtype=torch.uint8).to(DEVICE)
     folds = tssp.TILE * d
-    fold_out = torch.empty(folds, dtype=torch.int64, device=DEVICE)  # a tile of v
+    fold_out = torch.empty(folds, dtype=torch.uint32, device=DEVICE)  # a tile of v
     cases = {  # name -> [(shape, reps, kernel, plain, bound), ...]; the last case is reported
         "keystream_words": [
             (f"setup's error draws: {e_blocks} blocks", 20,
@@ -934,7 +961,7 @@ def phase_kernels(results: dict) -> None:
             f"random_ssp's first tile: {tssp.TILE} rows x d={d}, out= a tile of v", 10,
             lambda: aes.keystream_fold_p(ent_key.aes, (wb + pad) // 16, folds, out=fold_out),
             lambda: aes.keystream_fold_p_plain(ent_key.aes, (wb + pad) // 16, folds),
-            bound(8 * folds, (CF_OPS + 2 * FOLD_OPS) * folds / 2))],
+            bound(4 * folds, (CF_OPS + 2 * FOLD_OPS) * folds / 2))],
         "eval_mac_planes": [(
             f"one lane of the prover's sweep: k=1 x {terms} terms, n={n}", 5,
             lambda: eval_fused.eval_mac_planes(crs_key, P.ctr_s, coeffs[:1], n, P.ctr_ct),
@@ -1245,7 +1272,7 @@ def phase_golden() -> None:
         serial.ssp_write_stream(path, run.ssp, P)
         sha = hashlib.sha256(serial.load(path)).hexdigest()
         back = serial.ssp_read_stream(path, P, DEVICE)
-    same = torch.equal(back.t, run.ssp.t) and torch.equal(back.v, run.ssp.v)
+    same = same_words(back.t, run.ssp.t) and same_words(back.v, run.ssp.v)
     print(f"phase golden: toy SSP streamed to a file and back: tensors equal={same}, "
           f"file sha256 equal to golden={sha == entry['sha256']['ssp']}")
     check(same and back.v.is_cuda, "toy: streamed SSP differs")
@@ -1272,7 +1299,13 @@ def phase_release(label: str):
 
     for stage, sec in run.times.items():
         print(f"phase release: {stage} {sec:.3f} s [{label}]")
-    print(f"phase release: peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    print(f"phase release: peak device memory {peak / 2**30:.2f} GiB (int64 SSP: "
+          f"{INT64_SSP_PEAK_GIB:.2f} GiB, PERF.md); launches {launches}")
+    ssp_types = (run.ssp.t.dtype, run.ssp.v.dtype, run.ssp.v.device.type)
+    print(f"phase release: SSP t {ssp_types[0]}, v {ssp_types[1]} {tuple(run.ssp.v.shape)} on "
+          f"{ssp_types[2]}")
+    check(ssp_types == (torch.uint32, torch.uint32, "cuda"),
+          "release: the SSP is not uint32 on the card")
     check(run.verified, "release: the verifier rejected an honest proof")
     pi = run.proof
     check(pi.stack().shape == (5, P.n + 1, 88) and pi.stack().dtype == torch.uint8,
@@ -1316,7 +1349,9 @@ def phase_release(label: str):
           "release: the schedule, the smudging or the verifier without host sync")
     for name in RELEASE_PATH:
         check(launches[name] > 0, f"release: kernel {name} was not launched on the main path")
-    for name, planned in RELEASE_LAUNCHES.items():
+    tiles = -(-P.m // tssp.TILE)  # K2 a tile of v; K7 a tile's t-gate, then the prover's w
+    for name, planned in {**RELEASE_LAUNCHES, "keystream_fold_p": tiles,
+                          "gated_rowsum_p": tiles + 1}.items():
         check(launches[name] == planned,
               f"release: {launches[name]} launches of {name}, planned {planned}")
     k6_plan = k6_division_launches(P.d) + 3  # the division and v^2
@@ -1332,6 +1367,46 @@ def phase_release(label: str):
     for stage, secs in walls.items():
         print(f"phase release: {stage} 5 repeats {', '.join(f'{x:.6f}' for x in secs)} s [{label}]")
     return run, launches
+
+
+def phase_d16(label: str) -> dict:
+    """One run of the protocol at d = 2^16, m = 43,690 (n = 1,470) through
+    the package's entry point, with the launch counters and the peak-memory
+    counter reset just before: it must verify, reject a tampered h and
+    launch every kernel of the release path; prints the four stage walls,
+    the peak device memory and the launches."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.__main__ import run_protocol
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.utils.params import Params
+
+    P = Params(**D16)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the release run's state, still alive
+    counters = reset_counters()
+    run = run_protocol(P, DEVICE, CRS_SEED, ENT_SEED)
+    launches = read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    pi = run.proof
+    bad_h = pi.h.clone()
+    bad_h[P.n, 0] ^= 1
+    bad = tsnark.Proof(h=bad_h, hat_h=pi.hat_h, hat_v=pi.hat_v, v_w=pi.v_w, b_w=pi.b_w)
+    rejected = not bool(tsnark.verifier(run.vrs, run.ssp, bad, P))
+    walls = ", ".join(f"{stage} {sec:.6f} s" for stage, sec in run.times.items())
+    print(f"phase d16: d={P.d} m={P.m} n={P.n}: {walls} [{label}]")
+    print(f"phase d16: peak device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it "
+          f"held before the run); SSP v {run.ssp.v.dtype} "
+          f"{tuple(run.ssp.v.shape)}; verified={run.verified} tampered_rejected={rejected}; "
+          f"launches {launches}; phase {time.perf_counter() - t0:.1f} s")
+    check(run.verified, "d16: the verifier rejected an honest proof")
+    check(rejected, "d16: a tampered proof was accepted")
+    check(run.ssp.v.dtype == torch.uint32, "d16: the SSP is not uint32")
+    for name in RELEASE_PATH:
+        check(launches[name] > 0, f"d16: kernel {name} was not launched")
+    return launches
 
 
 def phase_stagewise(run, label: str) -> dict:
@@ -1510,14 +1585,12 @@ def phase_sharded(run, label: str) -> dict:
         v_s, same_v = [], True
         for r in range(world):
             wits, v_r, t_r, lo = pmesh.random_ssp_part(r, world, ent_key, 0, P)
-            same_v &= torch.equal(v_r, ssp.v[lo : lo + v_r.shape[0]]) and torch.equal(
+            same_v &= same_words(v_r, ssp.v[lo : lo + v_r.shape[0]]) and torch.equal(
                 wits, run.witness)
             t_sum += t_r
             v_s.append(modp.matvec_mod_p(v_r, powers))
             del v_r
-        t = t_sum % modp.P
-        t[0] = modp.submod_p(t[0], 1)
-        same_t = torch.equal(t, ssp.t)
+        same_t = same_words(tssp.finish_t(t_sum % modp.P), ssp.t)
         msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, vrs.s, ssp.t, lambda _: torch.cat(v_s),
                                      d, m)
         same_rows = True
@@ -1542,7 +1615,7 @@ def phase_sharded(run, label: str) -> dict:
         check(launches[name] > 0, f"sharded: kernel {name} was not launched on this path")
 
     # each rank's kernel call beside the one-device call, CUDA events
-    fold_out = torch.empty(-(-m // min(SHARDED_WORLDS)) * d, dtype=torch.int64, device=DEVICE)
+    fold_out = torch.empty(-(-m // min(SHARDED_WORLDS)) * d, dtype=torch.uint32, device=DEVICE)
     ctr0 = tssp.witness_and_mask(ent_key, 0, P)[2]
     calls = {
         "keystream_fold_p": (m, lambda lo, hi: aes.keystream_fold_p(
@@ -1627,6 +1700,7 @@ def main() -> int:
     phase_profile(label)
     phase_golden()
     run, release_launches = phase_release(label)
+    d16_launches = phase_d16(label)
     stagewise_launches = phase_stagewise(run, label)
     sharded_launches = phase_sharded(run, label)
 
@@ -1634,6 +1708,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": release_launches[name] if name in RELEASE_PATH else stagewise_launches[name],
          "launches_by_path": {"release": release_launches[name],
+                              "d16": d16_launches[name],
                               "stagewise": stagewise_launches[name],
                               "sharded": sharded_launches[name]},
          **results[name]}

@@ -71,7 +71,7 @@ def case_inputs(case: str) -> dict:
         return {"b_rows": rng.integers(0, 256, (p["d"], 88), dtype=np.uint8),
                 "coeffs": _words(rng, p["k"], p["d"])}
     if kind == "v_at_s":
-        return {"v": _words(rng, p["m"], 16), "s": np.int64(0x12345678)}
+        return {"v": _words(rng, p["m"], 16).astype(np.uint32), "s": np.int64(0x12345678)}
     if kind == "random_ssp":
         return {}
     n = p["n"]

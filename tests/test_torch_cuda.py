@@ -25,6 +25,7 @@ from c_lwe_snarks_tpu_torch.utils.params import Params
 
 SEED = bytes(range(40))
 WRAP = (1 << 32) - 3  # counter low word wraps after 3 blocks
+SENTINEL = (1 << 32) - 7  # a uint32 word >= p: no fold takes it
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "torch_port_digests.json"
 
 torch.set_num_threads(1)
@@ -64,32 +65,34 @@ def test_k1_keystream_words(cuda, start, nblocks):
 @pytest.mark.parametrize("start,npairs", [
     (0, 1), (5, 2), (WRAP, 4001), ((1 << 32) + 9, 2001), (99, 1 << 17), (3, 2 * (132 * 1024) + 13)])
 def test_k2_keystream_fold_p(cuda, start, npairs):
-    """K2 writes int64 words, into its own tensor and into the middle of the
+    """K2 writes uint32 words, into its own tensor and into the middle of the
     caller's: the odd tail ends on the last pair."""
     key = aes.make_key(SEED, cuda)
     want = aes.keystream_fold_p_plain(key, start, npairs)
     got = aes.keystream_fold_p(key, start, npairs)
-    assert got.dtype == torch.int64
+    assert got.dtype == want.dtype == torch.uint32
     _eq(got, want)
-    guarded = torch.full((npairs + 4,), -7, dtype=torch.int64, device=cuda)
+    guarded = torch.full((npairs + 4,), SENTINEL, dtype=torch.uint32).to(cuda)
     before = aes.LAUNCHES["keystream_fold_p"]
     out = aes.keystream_fold_p(key, start, npairs, out=guarded[2 : 2 + npairs])
     assert aes.LAUNCHES["keystream_fold_p"] == before + 1
     assert out.data_ptr() == guarded[2:].data_ptr()
     _eq(guarded[2 : 2 + npairs], want)
-    assert bool((guarded[:2] == -7).all()) and bool((guarded[2 + npairs :] == -7).all())
+    ends = guarded.cpu()
+    assert ends[:2].tolist() == [SENTINEL] * 2 and ends[2 + npairs :].tolist() == [SENTINEL] * 2
 
 
 @pytest.mark.gpu
 def test_k2_refuses_an_out_it_cannot_write(cuda):
-    """No quiet copy and no fallback: a misaligned, wrongly typed, short,
-    strided or CPU out= raises."""
+    """No quiet copy and no fallback: a misaligned, wrongly typed (int64,
+    the type before v was uint32, too), short, strided or CPU out= raises."""
     key = aes.make_key(SEED, cuda)
-    for bad in (torch.empty(9, dtype=torch.int64, device=cuda)[1:],
+    for bad in (torch.empty(9, dtype=torch.uint32, device=cuda)[1:],
                 torch.empty(8, dtype=torch.int32, device=cuda),
-                torch.empty(6, dtype=torch.int64, device=cuda),
-                torch.empty(16, dtype=torch.int64, device=cuda)[::2],
-                torch.empty(8, dtype=torch.int64)):
+                torch.empty(8, dtype=torch.int64, device=cuda),
+                torch.empty(6, dtype=torch.uint32, device=cuda),
+                torch.empty(16, dtype=torch.uint32, device=cuda)[::2],
+                torch.empty(8, dtype=torch.uint32)):
         with pytest.raises(ValueError, match="out:"):
             aes.keystream_fold_p(key, 0, 8, out=bad)
 
@@ -359,9 +362,9 @@ def test_k7_gated_rowsum(cuda, rows, d, gate_kind):
     random_ssp tile and the prover's row count."""
     rng = np.random.default_rng(rows + d)
     if gate_kind == "ones_max":
-        v = torch.full((rows, d), PM1, dtype=torch.int64, device=cuda)
+        v = torch.full((rows, d), PM1, dtype=torch.uint32).to(cuda)
     else:
-        v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.int64)).to(cuda)
+        v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.uint32)).to(cuda)
     gate = {"ones_max": np.ones(rows, np.uint8), "zero": np.zeros(rows, np.uint8),
             "random": rng.integers(0, 2, size=rows, dtype=np.uint8)}[gate_kind]
     gate = torch.from_numpy(gate).to(cuda)
@@ -374,10 +377,11 @@ def test_k7_gated_rowsum(cuda, rows, d, gate_kind):
 
 @pytest.mark.gpu
 def test_k7_refuses_a_v_it_cannot_read(cuda):
-    """No quiet copy: a strided or wrongly typed v raises."""
-    v = torch.zeros(8, 16, dtype=torch.int64, device=cuda)
+    """No quiet copy: a strided or wrongly typed (int64 too) v raises."""
+    v = torch.zeros(8, 16, dtype=torch.uint32, device=cuda)
     gate = torch.ones(8, dtype=torch.uint8, device=cuda)
-    for bad in (v[:, ::2], v.T[:8, :8], v.int()):
+    wide = torch.zeros(8, 16, dtype=torch.int64, device=cuda)
+    for bad in (v[:, ::2], v.T[:8, :8], v.view(torch.int32), wide):
         with pytest.raises(ValueError, match="v:"):
             modp.gated_rowsum_mod_p(bad, gate[: bad.shape[0]])
 
@@ -395,17 +399,19 @@ def test_k6_k7_prover_polys_without_host_sync(cuda):
     plain = tsnark.prover_polys(sampling.PRGKey(SEED, "cpu"), 4096, cpu_ssp, wits.cpu(), P)
     for g, w in zip(want, plain):
         _eq(g, w)
-    degree, lead = ntt.poly_degree_and_lead(ssp.t)
+    assert ssp.t.dtype == ssp.v.dtype == torch.uint32
+    t = ssp.t.to(torch.int64)
+    degree, lead = ntt.poly_degree_and_lead(t)
     delta = want[0]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        w = modp.addmod_p(modp.mulmod_p(delta, ssp.t),
+        w = modp.addmod_p(modp.mulmod_p(delta, t),
                           modp.gated_rowsum_mod_p(ssp.v[1:], wits[: P.m - 1]))
-        v = modp.addmod_p(ssp.v[0], w)
+        v = modp.addmod_p(ssp.v[0].to(torch.int64), w)
         num = ntt.poly_mul_mod_p(v, v)
         num[0] = modp.submod_p(num[0], 1)
-        h = ntt.poly_div_exact_mod_p(num, ssp.t, P.d, den_degree=degree, den_lead=lead)
+        h = ntt.poly_div_exact_mod_p(num, t, P.d, den_degree=degree, den_lead=lead)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     for g, x in zip((w, v, h), want[1:]):
@@ -429,10 +435,10 @@ def test_k8_matvec_mod_p(cuda, rows, d, kind):
     ragged last row group, setup's row length."""
     rng = np.random.default_rng(rows * 7 + d)
     if kind == "max":
-        v = torch.full((rows, d), PM1, dtype=torch.int64, device=cuda)
+        v = torch.full((rows, d), PM1, dtype=torch.uint32).to(cuda)
         w = torch.full((d,), PM1, dtype=torch.int64, device=cuda)
     else:
-        v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.int64)).to(cuda)
+        v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.uint32)).to(cuda)
         w = torch.from_numpy(rng.integers(0, PM1 + 1, size=d, dtype=np.int64)).to(cuda)
     before = modp.LAUNCHES["matvec_mod_p"]
     got = modp.matvec_mod_p(v, w)
@@ -445,10 +451,11 @@ def test_k8_matvec_mod_p(cuda, rows, d, kind):
 
 @pytest.mark.gpu
 def test_k8_refuses_a_v_it_cannot_read(cuda):
-    """No quiet copy: a strided or wrongly typed v or w raises."""
-    v = torch.zeros(8, 16, dtype=torch.int64, device=cuda)
+    """No quiet copy: a strided or wrongly typed (an int64 v too) v or w
+    raises."""
+    v = torch.zeros(8, 16, dtype=torch.uint32, device=cuda)
     w = torch.zeros(16, dtype=torch.int64, device=cuda)
-    for bad in (v[:, ::2], v.T, v.int()):
+    for bad in (v[:, ::2], v.T, v.view(torch.int32), torch.zeros(8, 16, dtype=torch.int64, device=cuda)):
         with pytest.raises(ValueError, match="v:"):
             modp.matvec_mod_p(bad, w[: bad.shape[-1]])
     for bad in (w.int(), torch.zeros(32, dtype=torch.int64, device=cuda)[::2], w[:8]):
@@ -501,8 +508,9 @@ def test_k8_poly_eval_at_s(cuda, rows, d):
     version, at d < 8, 2^15 and past 2^21, s in {0, 1, p - 1, random}, every
     coefficient p - 1 in the first row; one launch, no K9."""
     rng = np.random.default_rng(rows + d)
-    v = torch.from_numpy(rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.int64)).to(cuda)
+    v = rng.integers(0, PM1 + 1, size=(rows, d), dtype=np.uint32)
     v[0] = PM1
+    v = torch.from_numpy(v).to(cuda)
     for s in (0, 1, PM1, 123456789):
         st = torch.tensor(s, device=cuda)
         before = {**modp.LAUNCHES}
@@ -510,8 +518,9 @@ def test_k8_poly_eval_at_s(cuda, rows, d):
         assert modp.LAUNCHES["matvec_mod_p"] == before["matvec_mod_p"] + 1
         assert modp.LAUNCHES["powers_mod_p"] == before["powers_mod_p"]
         _eq(got, modp.poly_eval_plain(v, st))
-    with pytest.raises(ValueError, match="v:"):
-        modp.poly_eval_mod_p(v.int(), st)
+    for bad in (v.view(torch.int32), v.to(torch.int64)):
+        with pytest.raises(ValueError, match="v:"):
+            modp.poly_eval_mod_p(bad, st)
 
 
 def _fold_ref(acc: np.ndarray, ndigits: int) -> np.ndarray:

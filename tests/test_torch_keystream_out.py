@@ -2,8 +2,9 @@
 
 K1 (``keystream_blocks``) gives the stream's bytes, uint8 [nblocks, 16];
 ``keystream_words`` is the same memory read as words.  K2
-(``keystream_fold_p``) gives int64 words and, with ``out=``, writes them
-into the caller's tensor: ``ssp.gen_v`` passes each tile of v.  On the CPU
+(``keystream_fold_p``) gives uint32 words, the TPU kernel's type, and,
+with ``out=``, writes them into the caller's tensor: ``ssp.gen_v`` passes
+each tile of v.  On the CPU
 the wrappers run the plain versions; they are held, bit for bit
 (tolerance 0), against the JAX Pallas kernels in interpret mode, the JAX
 ``random_ssp`` and the host oracle.
@@ -43,7 +44,7 @@ WRAP = (1 << 32) - 3  # counter low word wraps after 3 blocks
 CSRC = pathlib.Path(taes.__file__).resolve().parent.parent / "csrc"
 U32 = np.uint32
 P32 = (1 << 32) - 5
-SENTINEL = -7
+SENTINEL = (1 << 32) - 7  # >= p: no fold takes it
 
 
 @pytest.fixture(scope="module")
@@ -83,33 +84,36 @@ def test_keystream_words_is_the_int32_view_of_the_bytes(tkey, start, nblocks):
     assert torch.equal(words, view)
 
 
-# ---- K2: int64 words, out= --------------------------------------------------
+# ---- K2: uint32 words, out= -------------------------------------------------
 
 
 @pytest.mark.parametrize("npairs", [2 * 64 + 16, 2 * 64 + 17])
 def test_fold_p_out_into_the_middle_vs_pallas(tkey, jkey, npairs):
     """Even and odd pair counts across the low-word wrap, written between
     sentinels: the neighbours stay."""
-    buf = torch.full((npairs + 6,), SENTINEL, dtype=torch.int64)
+    buf = torch.full((npairs + 6,), SENTINEL, dtype=torch.uint32)
     out = taes.keystream_fold_p(tkey, WRAP, npairs, out=buf[2 : 2 + npairs])
     assert out.data_ptr() == buf[2:].data_ptr() and out.shape == (npairs,)
-    want = aes_pallas.keystream_fold_p(jkey, WRAP, npairs, tile_w=2, interpret=True)
-    np.testing.assert_array_equal(buf[2 : 2 + npairs].numpy(), np.asarray(want).astype(np.int64))
+    want = np.asarray(aes_pallas.keystream_fold_p(jkey, WRAP, npairs, tile_w=2, interpret=True))
+    assert buf.numpy().dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(buf[2 : 2 + npairs].numpy(), want)
     np.testing.assert_array_equal(out.numpy(), oracle_folds(WRAP, npairs))
     assert bool((buf[:2] == SENTINEL).all()) and bool((buf[2 + npairs :] == SENTINEL).all())
     assert torch.equal(out, taes.keystream_fold_p(tkey, WRAP, npairs))
 
 
 @pytest.mark.parametrize("plain", [False, True])
-@pytest.mark.parametrize("why", ["dtype", "length", "strided", "misaligned", "two-dimensional"])
+@pytest.mark.parametrize("why", ["dtype", "int64", "length", "strided", "misaligned", "two-dimensional"])
 def test_fold_p_refuses_an_out_it_cannot_write(tkey, why, plain):
-    """No quiet copy: the wrapper and the plain version raise alike."""
+    """No quiet copy: the wrapper and the plain version raise alike, on an
+    int64 out= (the type K2 wrote before v was uint32) too."""
     bad = {
         "dtype": torch.empty(8, dtype=torch.int32),
-        "length": torch.empty(6, dtype=torch.int64),
-        "strided": torch.empty(16, dtype=torch.int64)[::2],
-        "misaligned": torch.empty(10, dtype=torch.int64)[1:9],
-        "two-dimensional": torch.empty(2, 4, dtype=torch.int64),
+        "int64": torch.empty(8, dtype=torch.int64),
+        "length": torch.empty(6, dtype=torch.uint32),
+        "strided": torch.empty(16, dtype=torch.uint32)[::2],
+        "misaligned": torch.empty(10, dtype=torch.uint32)[1:9],
+        "two-dimensional": torch.empty(2, 4, dtype=torch.uint32),
     }[why]
     fold = taes.keystream_fold_p_plain if plain else taes.keystream_fold_p
     with pytest.raises(ValueError, match="out:"):
@@ -118,7 +122,7 @@ def test_fold_p_refuses_an_out_it_cannot_write(tkey, why, plain):
 
 def test_sampling_fold_p_passes_out_on(tkey):
     key = tsam.PRGKey(SEED, "cpu")
-    buf = torch.full((12,), SENTINEL, dtype=torch.int64)
+    buf = torch.full((12,), SENTINEL, dtype=torch.uint32)
     tsam.keystream_fold_p(key, 9, 7, out=buf[2:9])
     np.testing.assert_array_equal(buf[2:9].numpy(), oracle_folds(9, 7))
     assert buf[:2].tolist() == [SENTINEL] * 2 and buf[9:].tolist() == [SENTINEL] * 3
@@ -163,7 +167,7 @@ def test_gen_v_hands_k2_each_tile_of_v(monkeypatch):
     mask = torch.ones(8, dtype=torch.uint8)
     v, t = tssp.gen_v(key, 5, mask, 16)
     assert [n for _, n in calls] == [48, 48, 32]
-    assert [ptr for ptr, _ in calls] == [v.data_ptr() + 8 * 16 * lo for lo in (0, 3, 6)]
+    assert [ptr for ptr, _ in calls] == [v.data_ptr() + 4 * 16 * lo for lo in (0, 3, 6)]
     np.testing.assert_array_equal(v.reshape(-1).numpy(), oracle_folds(5, 8 * 16))
     np.testing.assert_array_equal(t.numpy(), v.numpy().sum(0) % P32)
 
@@ -242,24 +246,23 @@ def test_device_fold_in_the_double_wrap_window():
 
 
 def k2_model(tkey, start: int, npairs: int, buf: torch.Tensor, at: int) -> None:
-    """keystream_fold_p_kernel's stores into buf[at : at + npairs], seen as
-    the uint32 words the kernel addresses: {f0, 0, f1, 0} an AES block, and
-    {f0, 0} for the block that holds an odd count's last pair."""
-    mem = buf.numpy().view(U32)
-    out = mem[2 * at :]  # the launcher's pointer
+    """keystream_fold_p_kernel's stores into buf[at : at + npairs], the
+    uint32 words the kernel addresses: {f0, f1} an AES block, and f0 alone
+    for the block that holds an odd count's last pair."""
+    out = buf.numpy()[at:]  # the launcher's pointer
     w = taes.keystream_words_plain(tkey, start, (npairs + 1) // 2).numpy().astype(U32).reshape(-1, 4)
     with np.errstate(over="ignore"):
         f0, f1 = fold64_device(w[:, 1], w[:, 0]), fold64_device(w[:, 3], w[:, 2])
     for i in grid_stride_items((npairs + 1) // 2):
         if 2 * i + 1 < npairs:
-            out[4 * i : 4 * i + 4] = (f0[i], 0, f1[i], 0)
+            out[2 * i : 2 * i + 2] = (f0[i], f1[i])
         else:
-            out[4 * i : 4 * i + 2] = (f0[i], 0)
+            out[2 * i] = f0[i]
 
 
 @pytest.mark.parametrize("start,npairs", [(3, 1), ((1 << 32) - 1, 2), (WRAP, 2001), (7, 2 * 1024 + 2)])
 def test_k2_stores_write_exactly_npairs_words(tkey, start, npairs):
-    buf = torch.full((npairs + 4,), SENTINEL, dtype=torch.int64)
+    buf = torch.full((npairs + 4,), SENTINEL, dtype=torch.uint32)
     k2_model(tkey, start, npairs, buf, 2)
     np.testing.assert_array_equal(buf[2 : 2 + npairs].numpy(), oracle_folds(start, npairs))
     assert buf[:2].tolist() == [SENTINEL] * 2 and buf[2 + npairs :].tolist() == [SENTINEL] * 2

@@ -116,7 +116,7 @@ def test_matvec_matches_jax_at_p_minus_1(d):
     v = np.full((3, d), P - 1, np.uint32)
     w = np.full(d, P - 1, np.uint32)
     want = np.asarray(_jmatvec(jnp.asarray(v), jnp.asarray(w))).astype(np.int64)
-    tv, tw = torch.from_numpy(v.astype(np.int64)), torch.from_numpy(w.astype(np.int64))
+    tv, tw = torch.from_numpy(v), torch.from_numpy(w.astype(np.int64))
     np.testing.assert_array_equal(tmodp.matvec_mod_p(tv, tw).numpy(), want)
     np.testing.assert_array_equal(k8_model(v.astype(np.uint64), w.astype(np.uint64)), want)
     assert int(want[0]) == (d * (P - 1) ** 2) % P
@@ -131,7 +131,7 @@ def test_matvec_any_d_matches_jax(rows, d):
     v = rng.integers(0, P, size=(rows, d), dtype=np.uint64).astype(np.uint32)
     w = rng.integers(0, P, size=d, dtype=np.uint64).astype(np.uint32)
     want = np.asarray(_jmatvec(jnp.asarray(v), jnp.asarray(w))).astype(np.int64)
-    got = tmodp.matvec_mod_p(torch.from_numpy(v.astype(np.int64)), torch.from_numpy(w.astype(np.int64)))
+    got = tmodp.matvec_mod_p(torch.from_numpy(v), torch.from_numpy(w.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(python_matvec(v, w), want)
     np.testing.assert_array_equal(k8_model(v.astype(np.uint64), w.astype(np.uint64)), want)
@@ -148,14 +148,25 @@ def test_k8_model_matches_jax(rows, d):
     v[0], w[: d // 2] = P - 1, P - 1
     want = np.asarray(_jmatvec(jnp.asarray(v), jnp.asarray(w))).astype(np.int64)
     np.testing.assert_array_equal(k8_model(v.astype(np.uint64), w.astype(np.uint64)), want)
-    got = tmodp.matvec_mod_p(torch.from_numpy(v.astype(np.int64)), torch.from_numpy(w.astype(np.int64)))
+    got = tmodp.matvec_mod_p(torch.from_numpy(v), torch.from_numpy(w.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("form", ["matvec", "at_s"])
+def test_k8_refuses_int64_rows(form):
+    """No quiet conversion on any device: int64 rows (the type before the
+    SSP was uint32) raise on the CPU as they do on the card."""
+    v = torch.zeros(2, 8, dtype=torch.int64)
+    call = {"matvec": lambda: tmodp.matvec_mod_p(v, torch.zeros(8, dtype=torch.int64)),
+            "at_s": lambda: tmodp.poly_eval_mod_p(v, torch.tensor(3))}[form]
+    with pytest.raises(ValueError, match="uint32"):
+        call()
 
 
 def test_matvec_batch_dimensions():
     """v [..., m, d] -> [..., m]; a 1-D v is one row."""
     rng = np.random.default_rng(9)
-    v = rng.integers(0, P, size=(2, 3, 50), dtype=np.int64)
+    v = rng.integers(0, P, size=(2, 3, 50), dtype=np.int64).astype(np.uint32)
     w = rng.integers(0, P, size=50, dtype=np.int64)
     got = tmodp.matvec_mod_p(torch.from_numpy(v), torch.from_numpy(w))
     assert got.shape == (2, 3)
@@ -205,7 +216,7 @@ def test_poly_eval_matches_jax():
     x = rng.integers(0, P, size=(3, 1000), dtype=np.uint64).astype(np.uint32)
     s = 987654321
     want = np.asarray(_jpoly_eval(jnp.asarray(x), jnp.uint32(s))).astype(np.int64)
-    got = tmodp.poly_eval_mod_p(torch.from_numpy(x.astype(np.int64)), torch.tensor(s))
+    got = tmodp.poly_eval_mod_p(torch.from_numpy(x), torch.tensor(s))
     np.testing.assert_array_equal(got.numpy(), want)
     powers = k9_model(s, 1000).astype(np.uint64)
     np.testing.assert_array_equal(k8_model(x.astype(np.uint64), powers), want)
@@ -271,7 +282,7 @@ def test_poly_eval_at_s_matches_jax(rows, d):
     x[0, : d // 2] = P - 1
     for s in (P - 1, int(rng.integers(2, P))):
         want = np.asarray(_jpoly_eval(jnp.asarray(x), jnp.uint32(s))).astype(np.int64)
-        got = tmodp.poly_eval_mod_p(torch.from_numpy(x.astype(np.int64)), torch.tensor(s))
+        got = tmodp.poly_eval_mod_p(torch.from_numpy(x), torch.tensor(s))
         np.testing.assert_array_equal(got.numpy(), want)
         w = k8_at_s_operand(s, rows, d)
         if d <= 1 << 15:

@@ -26,6 +26,11 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x).astype(np.int64))
 
 
+def _rows(x) -> torch.Tensor:
+    """Coefficient rows as the SSP holds them: uint32, as in the JAX package."""
+    return torch.from_numpy(np.asarray(x).astype(U32))
+
+
 def _eq(got: torch.Tensor, want) -> None:
     np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(want).astype(np.int64))
 
@@ -80,7 +85,7 @@ def test_sum_powers_poly_eval():
         want = jax.jit(jm.powers_mod_p, static_argnums=1)(jnp.uint32(s), count)
         _eq(tm.powers_mod_p(_t(s), count), want)
     want = jax.jit(jm.poly_eval_mod_p)(jnp.asarray(x), jnp.uint32(s))
-    _eq(tm.poly_eval_mod_p(_t(x), _t(s)), want)
+    _eq(tm.poly_eval_mod_p(_rows(x), _t(s)), want)
 
 
 def test_gated_rowsum_and_matvec():
@@ -94,9 +99,9 @@ def test_gated_rowsum_and_matvec():
     w = _words(rng, d, P)
     w[:7] = P - 1
     want = jax.jit(jm.gated_rowsum_mod_p)(jnp.asarray(v), jnp.asarray(gate))
-    _eq(tm.gated_rowsum_mod_p(_t(v), torch.from_numpy(gate)), want)
+    _eq(tm.gated_rowsum_mod_p(_rows(v), torch.from_numpy(gate)), want)
     want = jax.jit(jm.matvec_mod_p)(jnp.asarray(v), jnp.asarray(w))
-    _eq(tm.matvec_mod_p(_t(v), _t(w)), want)
+    _eq(tm.matvec_mod_p(_rows(v), _t(w)), want)
 
 
 def test_invmod_p():

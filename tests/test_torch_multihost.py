@@ -88,8 +88,8 @@ def test_a_rank_rows_ssp_is_refused_where_the_whole_one_is_needed(tmp_path):
     from c_lwe_snarks_tpu_torch.utils.params import Params
 
     P = Params(d=16, m=8, n=32)
-    part = tssp.SSP(t=torch.zeros(16, dtype=torch.int64),
-                    v=torch.zeros(4, 16, dtype=torch.int64), row0=4)
+    part = tssp.SSP(t=torch.zeros(16, dtype=torch.uint32),
+                    v=torch.zeros(4, 16, dtype=torch.uint32), row0=4)
     for write in (lambda: serial.ssp_to_buffer(part, P),
                   lambda: serial.ssp_write_stream(str(tmp_path / "ssp.bin"), part, P)):
         with pytest.raises(ValueError, match="rank's rows"):

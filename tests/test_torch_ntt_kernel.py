@@ -571,7 +571,7 @@ def test_prover_polys_matches_jax(request, impl):
     if impl == "k6":
         request.getfixturevalue("k6")
     wits, t, v_rows, *want = _jax_prover_polys()
-    ssp = tssp.SSP(t=torch.from_numpy(t.astype(np.int64)), v=torch.from_numpy(v_rows.astype(np.int64)))
+    ssp = tssp.SSP(t=torch.from_numpy(t), v=torch.from_numpy(v_rows))  # uint32, as JAX holds them
     got = tsnark.prover_polys(tsam.PRGKey(ENT_SEED, "cpu"), PROVE_OFFSET, ssp,
                               torch.from_numpy(wits), TINY)
     for g, w in zip(got, want):

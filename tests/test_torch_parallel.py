@@ -117,8 +117,9 @@ def test_sharded_equals_jax(worlds, case, world):
             want = x["num"].numpy()
             prod = _jmul(_u32(x["den"].numpy()), _u32(got["out"]), want.shape[0])
             np.testing.assert_array_equal(np.asarray(prod).astype(np.int64), want)
-    if kind == "random_ssp":  # rank 0 holds the first rows
+    if kind == "random_ssp":  # rank 0 holds the first rows; t and v are uint32, as in JAX
         assert int(got["row0"]) == 0
+        assert got["t"].dtype == got["v"].dtype == np.asarray(want["v"]).dtype == np.uint32
 
 
 @pytest.mark.parametrize("world", WORLDS)

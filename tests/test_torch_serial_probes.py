@@ -99,8 +99,8 @@ def test_proof_from_bytes_reads_jax_bytes(jax_run, port_state):
 
 
 def test_ssp_from_buffer_reads_jax_bytes(jax_run, port_state):
-    _same(port_state["ssp"].t, jax_run[1].t, torch.int64)
-    _same(port_state["ssp"].v, jax_run[1].v, torch.int64)
+    _same(port_state["ssp"].t, jax_run[1].t, torch.uint32)
+    _same(port_state["ssp"].v, jax_run[1].v, torch.uint32)
 
 
 @pytest.mark.parametrize("artifact", ["ssp", "crs", "vrs", "proof"])
@@ -123,7 +123,7 @@ def test_readers_give_what_the_jax_readers_give(jax_blobs, port_state):
     jcrs = jserial.crs_from_bytes(jax_blobs["crs"], P)
     _same(port_state["crs"].b_v, jcrs.b_v, torch.uint8)
     jssp_ = jserial.ssp_from_buffer(jax_blobs["ssp"], P)
-    _same(port_state["ssp"].v, jssp_.v, torch.int64)
+    _same(port_state["ssp"].v, jssp_.v, torch.uint32)
     jpi = jserial.proof_from_bytes(jax_blobs["proof"], P)
     _same(port_state["proof"].b_w, jpi.b_w, torch.uint8)
 

@@ -46,8 +46,9 @@ def run(file=sys.stdout) -> dict:
     v = tsnark.prover_polys(ent_key, off, ssp, wits, P)[2]
     num = ntt.poly_mul_mod_p(v, v)
     num[0] = modp.submod_p(num[0], 1)
-    degree, lead = ntt.poly_degree_and_lead(ssp.t)
-    t_rev = torch.flip(ssp.t, (0,))[None].contiguous()
+    t = ssp.t.to(torch.int64)  # the SSP's uint32 t as the division's words
+    degree, lead = ntt.poly_degree_and_lead(t)
+    t_rev = torch.flip(t, (0,))[None].contiguous()
     seed = pow(lead, modp.P - 2, modp.P)
 
     def k6_us(items: dict, calls: int, names=("ntt_",)) -> float:
@@ -67,7 +68,7 @@ def run(file=sys.stdout) -> dict:
         old = ntt.NEWTON_N
         ntt.NEWTON_N = nc
         try:
-            return ntt.poly_div_exact_mod_p(num, ssp.t, P.d, den_degree=degree, den_lead=lead)
+            return ntt.poly_div_exact_mod_p(num, t, P.d, den_degree=degree, den_lead=lead)
         finally:
             ntt.NEWTON_N = old
 

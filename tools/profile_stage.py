@@ -8,7 +8,8 @@ Needs a CUDA device.  ``--root`` names the checkout whose
 ``c_lwe_snarks_tpu_torch`` is imported (default: this one), so one call can
 profile two trees with the same script.  It runs random_ssp, setup, the
 prover and the verifier once at release parameters (the warm calls: the
-kernel library, the tables, the allocator), then for each ``--stage``
+kernel library, the tables, the allocator; their peak device memory is
+printed, the SSP's type beside it), then for each ``--stage``
 (default: setup and verifier) one traced call (after the profiler's 10 ms
 settle) and five untraced calls, each timed on the host clock around a
 synchronize.  Device busy = device items (kernels, copies, sets) over the
@@ -45,18 +46,23 @@ def run(stages, label: str, file=sys.stdout) -> dict:
     ent_key = sampling.PRGKey(bytes([1] * 40), "cuda")
     off_setup = tssp.entropy_bytes_random_ssp(P)
     off_prove = off_setup + tsnark.setup_entropy_bytes(P)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     wits, ssp = tssp.random_ssp(ent_key, 0, P)
     crs, vrs = tsnark.setup(crs_key, ent_key, off_setup, ssp, P)
     proof = tsnark.prover(crs_key, ent_key, off_prove, crs, ssp, wits, P)
     if not bool(tsnark.verifier(vrs, ssp, proof, P)):
         raise RuntimeError("profile_stage: the verifier rejected the release proof")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"profile stage: the warm release run (random_ssp, setup, prover, verifier): peak "
+          f"device memory {peak_gib:.3f} GiB, SSP v {ssp.v.dtype} [{label}]", file=file)
     calls = {
         "random_ssp": lambda: tssp.random_ssp(ent_key, 0, P),
         "setup": lambda: tsnark.setup(crs_key, ent_key, off_setup, ssp, P),
         "verifier": lambda: tsnark.verifier(vrs, ssp, proof, P),
         "prover": lambda: tsnark.prover(crs_key, ent_key, off_prove, crs, ssp, wits, P),
     }
-    out = {}
+    out = {"warm_peak_gib": peak_gib}
     for stage in stages:
         fn = calls[stage]
         items, wall = _trace(fn)
