@@ -4,9 +4,9 @@
 //
 // - the planes form (cls_carry_fold): int64 or int32 planes, any K and any
 //   ndigits.  Replaces the jnp function c_lwe_snarks_tpu/ops/digits.py:73
-//   carry_fold (shift-add passes and a carry lookahead by two cummax); the
-//   verifier's two bigint_dot folds, the mesh's int32 sums, ct_add and
-//   ct_mul_ui of the stage-wise path.
+//   carry_fold (shift-add passes and a carry lookahead by two cummax);
+//   bigint_dot's fold, the mesh's int32 sums, ct_add and ct_mul_ui of the
+//   stage-wise path.
 // - the b-row form (cls_carry_fold_b_rows): setup's b = <sk, a> + p * e + m
 //   mod 2^704 from K4's two nibble plane arrays, the error bytes and the
 //   message words.  Replaces the epilogue of
@@ -39,7 +39,8 @@
 // staging; the 88-digit forms load two positions at a time from rows that
 // start pair-aligned (their wrappers check), predicated off past the row's
 // end instead of branching on each address (a per-pair alignment test held
-// the b-row form at twice its time, 78 registers against 38).  The fold:
+// the b-row form at twice its time, 78 registers against 38).  The fold
+// (carry.cuh's fold_group, which K11 shares):
 // round 0, the lane walks its own positions (x < 2^63 each, the carry out
 // < 2^56) and keeps six digits, one base-2^48 digit; rounds 1 and 2 add
 // the carry of the lane below (__shfl_up_sync; after them every lane's
@@ -64,16 +65,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "carry.cuh"
+
+using namespace cls;
+
 namespace {
 
-constexpr int kLanes = 16;               // lanes a row is spread over
-constexpr int kPer = 6;                  // contiguous positions a lane owns
-constexpr int kSeg = kLanes * kPer;      // positions of one pass over a row
 constexpr int kThreads = 256;            // threads of a block
 constexpr int kRowsPerBlock = kThreads / kLanes;
 constexpr int kDigits = 88;              // mod-2^704 digits: the b-row, MAC-plane and smudge forms
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr uint64_t kBlockMask = (1ull << (8 * kPer)) - 1;  // a lane's six digits
 constexpr uint32_t kP0 = 0xFBu;          // p = 2^32 - 5: bytes FB FF FF FF
 constexpr uint32_t kPHi = 0xFFu;
 
@@ -160,43 +160,6 @@ __device__ __forceinline__ void with_below(const uint64_t (&v)[kPer], int g, uin
 // p times bytes at position j (E from with_below): sum_c p_c E[3 + j - c] < 2^18
 __device__ __forceinline__ uint32_t p_times(const uint32_t (&E)[kPer + 3], int j) {
   return kP0 * E[3 + j] + kPHi * (E[2 + j] + E[1 + j] + E[j]);
-}
-
-// The fold of one pass: lane g holds x[j] at position p0 + j (< 2^63 each;
-// lane 0's x[0] < 2^63 + 2^58 with the carry in).  Returns the lane's six
-// digits; out, in the group's top lane, is the carry out of the pass.
-__device__ __forceinline__ uint64_t fold_group(const uint64_t (&x)[kPer], int g, int shift,
-                                               uint64_t& out) {
-  // round 0: the lane's own positions in order; the carry stays < 2^56
-  uint64_t d = 0, c = 0;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const uint64_t v = x[j] + c;
-    d |= (v & 255u) << (8 * j);
-    c = v >> 8;
-  }
-  out = c;
-  // round 1: + the lane below's carry: < 2^48 + 2^56, so the carry <= 2^8
-  const uint64_t c1 = __shfl_up_sync(kFull, c, 1, kLanes);
-  d += g ? c1 : 0;
-  c = d >> (8 * kPer);
-  d &= kBlockMask;
-  out += c;
-  // round 2: + the lane below's carry: < 2^48 + 2^8, so the carry <= 1
-  const uint32_t c2 = __shfl_up_sync(kFull, static_cast<uint32_t>(c), 1, kLanes);
-  d += g ? c2 : 0u;
-  c = d >> (8 * kPer);
-  d &= kBlockMask;
-  out += c;
-  // round 3: the last one-bit ripple by lookahead over the group's ballot bits
-  const unsigned cb = (__ballot_sync(kFull, c != 0) >> shift) & 0xFFFFu;
-  d += (cb << 1 >> g) & 1u;  // <= 2^48
-  const unsigned gen = (__ballot_sync(kFull, d > kBlockMask) >> shift) & 0xFFFFu;
-  const unsigned prop = (__ballot_sync(kFull, d == kBlockMask) >> shift) & 0xFFFFu;
-  const unsigned carries = ((gen | prop) + gen) ^ prop;  // bit g: the carry into lane g
-  d += (carries >> g) & 1u;
-  out += carries >> kLanes;  // the top lane's overflow
-  return d & kBlockMask;
 }
 
 // the planes form: int64 or int32 [rows, k], positions past lim = min(k, ndigits) read 0

@@ -1,6 +1,7 @@
 // K8 matvec_mod_p: out[r] = sum_i v[r, i] * w[i] mod p, the message
 // schedule's v_i(s) and t(s) at setup; its at-s form, w = s^i made in the
-// block: the verifier's t(s) and v_0(s) in one launch.  K9 powers_mod_p:
+// block: poly_eval_mod_p, rows at s in one launch (the power walk,
+// modp.cuh, is K11's too).  K9 powers_mod_p:
 // out[i] = s^i mod p, and its messages form, setup's first 2d plaintexts
 // s^i and alpha s^i written into the message buffer by one launch.
 //
@@ -26,15 +27,15 @@
 // wrapper refuses d >= 2^37, a row of 512 GiB).  The sums fold to < 2^35
 // again, add up a warp by shuffles
 // (< 2^40) and the block's warps in shared memory (< 2^43), and reduce mod
-// p.  When the row groups alone do not fill the card (t's and the
-// verifier's rows), each row's columns are split over gridDim.y blocks;
+// p.  When the row groups alone do not fill the card (t's row, a few rows
+// at s), each row's columns are split over gridDim.y blocks;
 // each writes its residue to partial[row, split], and the last block of
 // the row group to finish (a counter per group, zeroed by the launcher)
 // adds the splits in split order and writes the result: one launch,
 // deterministic.  The at-s form reads s instead of w: a thread makes s^c
 // for its first column by square and multiply and s^kThreads once, then
-// steps one mulmod a column, so w is never written or read (the verifier's
-// two rows are launch-bound: 2 x 2^15 entries).
+// steps one mulmod a column, so w is never written or read (two rows of
+// 2^15 entries are launch-bound).
 //
 // K9 is launch-bound (2^15 words written at release; its bound on the H100
 // is those bytes, 0.08 us, a mulmod a word being far under the integer
@@ -44,6 +45,7 @@
 // s^i at i and alpha s^i at count + i of the message buffer, so setup's
 // schedule has no separate multiply by alpha and no concatenation.
 #include "aes_core.cuh"
+#include "modp.cuh"
 
 using namespace cls;
 
@@ -55,56 +57,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;     // columns a thread has in flight
 constexpr int kPowThreads = 256;
 
-// x folded by 2^32 = 5 (mod p): for any 64-bit x the result is < 6 * 2^32 < 2^35
-__device__ __forceinline__ uint64_t fold35(uint64_t x) {
-  return 5ull * (x >> 32) + (x & 0xFFFFFFFFull);
-}
-
-// x mod p for 0 <= x < 2^53: 5 * hi + lo < 2^32 + 2^24 < 2p
-__device__ __forceinline__ int64_t reduce53_mod_p(uint64_t x) {
-  uint64_t r = fold35(x);
-  if (r >= kP) r -= kP;
-  if (r >= kP) r -= kP;
-  return static_cast<int64_t>(r);
-}
-
-__device__ __forceinline__ uint32_t mulmod_p(uint32_t a, uint32_t b) {
-  const uint64_t x = static_cast<uint64_t>(a) * b;
-  return fold64_mod_p(static_cast<uint32_t>(x >> 32), static_cast<uint32_t>(x));
-}
-
-// b^e mod p by square and multiply over e's bits
-__device__ __forceinline__ uint32_t pow_mod_p(uint32_t b, uint64_t e) {
-  uint32_t r = 1u;
-  for (; e; e >>= 1) {
-    if (e & 1u) r = mulmod_p(r, b);
-    b = mulmod_p(b, b);
-  }
-  return r;
-}
-
 // K8's operand w, read from memory: column c's word
 struct WRead {
   const int64_t* w;
   __device__ __forceinline__ void start(int64_t) {}
   __device__ __forceinline__ uint32_t next(int64_t c) { return static_cast<uint32_t>(__ldg(w + c)); }
-};
-
-// the at-s form's operand, made in the block: s^c at the thread's columns
-// c0, c0 + kThreads, ..., in that order, one mulmod a column
-struct WPowers {
-  const int64_t* s;
-  uint32_t cur, step;
-  __device__ __forceinline__ void start(int64_t c0) {
-    const uint32_t b = static_cast<uint32_t>(*s);
-    cur = pow_mod_p(b, static_cast<uint64_t>(c0));
-    step = pow_mod_p(b, kThreads);
-  }
-  __device__ __forceinline__ uint32_t next(int64_t) {
-    const uint32_t x = cur;
-    cur = mulmod_p(cur, step);
-    return x;
-  }
 };
 
 template <class W>
@@ -225,7 +182,7 @@ extern "C" int cls_matvec_mod_p(const void* v, const void* w, int64_t rows, int6
 extern "C" int cls_matvec_at_s_mod_p(const void* v, const void* s, int64_t rows, int64_t d,
                                      int64_t splits, void* partial, void* done, void* out,
                                      void* stream) {
-  return launch_matvec(v, WPowers{static_cast<const int64_t*>(s), 0u, 0u}, rows, d, splits,
+  return launch_matvec(v, WPowers<kThreads>{static_cast<const int64_t*>(s), 0u, 0u}, rows, d, splits,
                        partial, done, out, static_cast<cudaStream_t>(stream));
 }
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import digits as dg
-from ..ops import eval_fused, sampling
+from ..ops import eval_fused, sampling, verify
 from ..utils.params import Params
 
 DIGITS = dg.DIGITS
@@ -155,9 +155,11 @@ def encrypt_section(
 
 
 def decrypt(ct: torch.Tensor, sk: torch.Tensor, params: Params) -> torch.Tensor:
-    """(b - <a, sk>) mod p, taken mod p directly (not mod 2^704 first)."""
-    dot = dg.bigint_dot(ct_a(ct), sk)
-    return dg.sub_mod_p(dg.mod_p(ct_b(ct)), dg.mod_p(dot))
+    """(b - <a, sk>) mod p as int64 [...], taken mod p directly (not mod
+    2^704 first).  On a CUDA tensor one launch of K11's decrypt form for
+    every ciphertext of ct [..., n+1, 88] (``ops.verify.decrypt``); on the
+    CPU its plain version."""
+    return verify.decrypt(ct, sk)
 
 
 def ct_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,9 @@ zk-SNARK, reference src/snark.c):
   over the s section and (v, h) over the as section; the proof bytes are
   the same.  The evaluations' epilogue and the five smudges are one K10
   launch each.
-* verifier: 5 decrypts (their carry folds K10 on the card), t(s) and
-  v_0(s) (one launch of K8's at-s form) and the mod-p relations, with no
-  host sync up to the returned bool tensor.
+* verifier: the 5 decrypts, t(s) and v_0(s), the mod-p relations and the
+  test-error bound in one launch of K11 on the card, with no host sync up
+  to the returned bool tensor.
 
 Given a mesh (``parallel.mesh``), setup and the prover split their work
 over the ranks: v_i(s) over the rows of v, the encryptions and the five
@@ -34,13 +34,12 @@ reproducible and byte-identical to the JAX package given equal seeds.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..ops import digits as dg
-from ..ops import modp, ntt, sampling
+from ..ops import modp, ntt, sampling, verify
 from ..parallel import mesh as pmesh
 from ..parallel.multihost import chunk_bounds
 from ..utils.params import Params
@@ -63,7 +62,7 @@ class CRS:
 class VRS:
     """Designated-verifier trapdoor (src/snark.h:23-29)."""
 
-    alpha: torch.Tensor  # int64 scalar < p
+    alpha: torch.Tensor  # uint32 scalar < p, as the JAX package's VRSDev holds it
     beta: torch.Tensor
     s: torch.Tensor
     sk: torch.Tensor  # uint8 [n, 88]
@@ -174,8 +173,9 @@ def setup(
     each rank evaluates its rows of v at s and draws and encrypts its
     chunk of the terms; every rank returns the whole CRS."""
     d, m, n = params.d, params.m, params.n
-    scalars = sampling.keystream_bytes(ent_key, ent_offset, 24).reshape(3, 8)
-    alpha, beta, s = (modp.bytes_to_u64_mod_p(scalars[i]) for i in range(3))
+    scalars = modp.bytes_to_u64_mod_p(
+        sampling.keystream_bytes(ent_key, ent_offset, 24).reshape(3, 8))
+    alpha, beta, s = scalars  # int64 working copies: K9 reads s and alpha on the device
     sk = tlwe.key_gen(ent_key, ent_offset + 24, params)
 
     impl = "auto" if tile is None else "scan"
@@ -199,7 +199,8 @@ def setup(
             params, mesh, tile=tile, impl=impl)
     crs = CRS(seed=crs_key.seed, b_s=rows[:d], b_as=rows[d : 2 * d],
               b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
-    return crs, VRS(alpha=alpha, beta=beta, s=s, sk=sk)
+    stored = scalars.to(torch.uint32)  # the VRS holds them as the JAX package does
+    return crs, VRS(alpha=stored[0], beta=stored[1], s=stored[2], sk=sk)
 
 
 # --------------------------------------------------------------------------
@@ -399,42 +400,29 @@ def smudge_proof(ent_key: sampling.PRGKey, ent_offset: int, evals, params: Param
 # --------------------------------------------------------------------------
 
 
-@functools.cache
-def _test_error_thresholds(device) -> torch.Tensor:
-    """p * 2^(64j) for j < 11 as uint8 digit rows [11, 88] (all < 2^704),
-    on the device once."""
-    p = (1 << 32) - 5
-    return torch.tensor(dg.ints_to_digit_matrix([p << (64 * j) for j in range(11)]), device=device)
-
-
 def test_error_ok(vrs: VRS, proof: Proof, params: Params) -> torch.Tensor:
     """The reference verifier's "test-error" bound (src/snark.c:237-241).
 
     The signed limb count of -floor(dot / p) is derived from 11 threshold
     comparisons; it is always below log_smudging/8 at these parameters,
-    but computed literally.
+    but computed literally (``ops.verify.error_count_plain``; on the card
+    the verifier counts it inside K11).
     """
-    dot = dg.bigint_dot(tlwe.ct_a(proof.b_w), vrs.sk)
-    thr = _test_error_thresholds(dot.device)
-    siz = -dg.digits_ge(dot[None, :], thr).to(torch.int64).sum()
-    return siz < params.log_smudging // 8
+    return -verify.error_count_plain(proof.b_w, vrs.sk) < params.log_smudging // 8
 
 
 def verifier(vrs: VRS, ssp: tssp.SSP, proof: Proof, params: Params) -> torch.Tensor:
-    """Decrypt the proof and check the mod-p relations; bool scalar.
+    """Decrypt the proof and check the mod-p relations and the test-error
+    bound; bool scalar.
 
+    On the card one launch of K11's verifier form (``ops.verify.verify``):
+    the five decrypts, t(s) and v_0(s), the relations and the bound, the
+    verdict a device bool with no host sync; on the CPU its plain version.
     Reads t and v_0 of the SSP (a rank's rows of v hold v_0 on rank 0
     only: ``parallel.mesh.row_zero``)."""
     if ssp.row0:
         raise ValueError("the verifier needs v_0; this SSP holds rows from row0 on")
-    dec = tlwe.decrypt(proof.stack(), vrs.sk, params)  # [5]
-    h_s, hath_s, hatv_s, w_s, b_s = (dec[i] for i in range(5))
-    t_s, v0_s = modp.poly_eval_mod_p(torch.stack([ssp.t, ssp.v[0]]), vrs.s)  # one K8 launch
-    v_s = modp.addmod_p(v0_s, w_s)
-    eq_pke1 = modp.mulmod_p(h_s, vrs.alpha) == hath_s
-    eq_pke2 = modp.mulmod_p(v_s, vrs.alpha) == hatv_s
-    lhs = modp.submod_p(
-        modp.submod_p(modp.mulmod_p(v_s, v_s), 1), modp.mulmod_p(h_s, t_s))
-    eq_div = lhs == 0
-    eq_lin = modp.mulmod_p(w_s, vrs.beta) == b_s
-    return eq_pke1 & eq_pke2 & eq_div & eq_lin & test_error_ok(vrs, proof, params)
+    cts = (proof.h, proof.hat_h, proof.hat_v, proof.v_w, proof.b_w)
+    ok, _ = verify.verify(cts, vrs.sk, ssp.t, ssp.v[0], vrs.s, vrs.alpha, vrs.beta,
+                          params.log_smudging // 8)
+    return ok

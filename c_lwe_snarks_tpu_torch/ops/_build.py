@@ -50,6 +50,8 @@ SIGNATURES = {
     "cls_encrypt_b_fused": (
         "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "p", "p"),
     "cls_keystream_blocks_v1": ("p", "u32", "u32", "u64", "i64", "p"),
+    "cls_decrypt": ("p", "i64", "p", "i64", "p", "p", "p"),
+    "cls_verify": (*("p",) * 6, "i64", "p", "p", "i64", "p", "p", "p", "i64", *("p",) * 5),
 }
 
 _lib = None

@@ -1,14 +1,17 @@
 """Z_p arithmetic for p = 2^32 - 5 on int64 tensors.
 
 Port of ``c_lwe_snarks_tpu/ops/modp.py``.  torch has no uint32 shifts,
-adds or compares, so a 32-bit word lives in an int64 tensor holding a
-value in [0, 2^32).  Every product below is split so that no
-intermediate reaches 2^63, and every result is the canonical residue in
-[0, p) — the same value the JAX package computes with its uint32 tricks
-(including ``add_u32_mod_p``'s double-wrap window, which exact int64
-arithmetic covers by construction).  The SSP's coefficient matrices are
-the exception: ``gated_rowsum_mod_p``, ``matvec_mod_p`` and
-``poly_eval_mod_p`` read uint32 rows, as the JAX package holds them, on
+adds or compares on the CPU, so the arithmetic here runs on int64 tensors
+holding values in [0, 2^32).  Every function takes the JAX package's
+uint32 words as well (the SSP's coefficients, the VRS's scalars): ``words``
+widens them to int64 once, at entry, and the result is int64 on every
+device.  Every product below is split so that no intermediate reaches
+2^63, and every result is the canonical residue in [0, p) — the same
+value the JAX package computes with its uint32 tricks (including
+``add_u32_mod_p``'s double-wrap window, which exact int64 arithmetic
+covers by construction).  The SSP's coefficient matrices are read as
+they are: ``gated_rowsum_mod_p``, ``matvec_mod_p`` and
+``poly_eval_mod_p`` take uint32 rows, as the JAX package holds them, on
 every device (any other type raises ValueError), and return int64 words.
 
 On a CUDA tensor these functions run hand-written kernels, and
@@ -52,8 +55,18 @@ _MATVEC_PLAIN_COLS = 1 << 20
 LAUNCHES = {"gated_rowsum_p": 0, "matvec_mod_p": 0, "powers_mod_p": 0}
 
 
+def words(x):
+    """The seam where the JAX package's uint32 words enter the int64
+    arithmetic: a uint32 tensor widened to int64 (one copy); any other
+    tensor, and a Python int, as it is."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.uint32:
+        return x.to(torch.int64)
+    return x
+
+
 def mul32(a, b):
     """Exact 32x32 -> 64-bit product of words in [0, 2^32) as (hi, lo) words."""
+    a, b = words(a), words(b)
     a0, a1 = a & 0xFFFF, a >> 16
     b0, b1 = b & 0xFFFF, b >> 16
     ll, lh, hl, hh = a0 * b0, a0 * b1, a1 * b0, a1 * b1  # each < 2^32
@@ -65,28 +78,29 @@ def mul32(a, b):
 
 def mulmod_p(a, b):
     """(a * b) mod p for words a, b in [0, 2^32) (tensors or ints)."""
+    a, b = words(a), words(b)
     # a * (b >> 16) < 2^48 and a * (b & 0xFFFF) < 2^48: no int64 overflow
     return ((a * (b >> 16)) % P * 65536 + a * (b & 0xFFFF)) % P
 
 
 def addmod_p(a, b):
     """(a + b) mod p for words in [0, 2^32)."""
-    return (a + b) % P
+    return (words(a) + words(b)) % P
 
 
 def add_u32_mod_p(a, b):
     """(a + b) mod p for two arbitrary words (exact, no double wrap)."""
-    return (a + b) % P
+    return (words(a) + words(b)) % P
 
 
 def submod_p(a, b):
     """(a - b) mod p (torch's ``%`` takes the sign of the divisor)."""
-    return (a - b) % P
+    return (words(a) - words(b)) % P
 
 
 def fold64_mod_p(hi, lo):
     """(hi * 2^32 + lo) mod p, using 2^32 = 5 (mod p)."""
-    return (hi * 5 + lo) % P
+    return (words(hi) * 5 + words(lo)) % P
 
 
 def bytes_to_u64_mod_p(b: torch.Tensor) -> torch.Tensor:
@@ -100,8 +114,8 @@ def bytes_to_u64_mod_p(b: torch.Tensor) -> torch.Tensor:
 
 def powmod_p(a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e mod p, static exponent (square and multiply)."""
-    result = torch.ones_like(a)
-    base = a
+    base = words(a)
+    result = torch.ones_like(base)
     while e:
         if e & 1:
             result = mulmod_p(result, base)
@@ -141,10 +155,12 @@ def _check_scalar(name: str, x: torch.Tensor, device) -> None:
 def powers_mod_p(s: torch.Tensor, count: int) -> torch.Tensor:
     """[1, s, s^2, ..., s^(count-1)] mod p: int64 [count].
 
-    s: a one-element int64 tensor (0-d or [1]) < p.  K9: on a CUDA tensor,
-    one launch of ``csrc/modp.cu`` that reads s on the device (the host
-    never does); on the CPU, ``powers_plain``."""
+    s: a one-element int64 or uint32 tensor (0-d or [1]) < p; a uint32 s is
+    widened first (``words``).  K9: on a CUDA tensor, one launch of
+    ``csrc/modp.cu`` that reads s on the device (the host never does); on
+    the CPU, ``powers_plain``."""
     assert count >= 1
+    s = words(s)
     if s.device.type == "cpu":
         return powers_plain(s, count)
     _check_scalar("s", s, s.device)
@@ -165,11 +181,13 @@ def message_powers(s: torch.Tensor, alpha: torch.Tensor, count: int,
     """[s^0, ..., s^(count-1), alpha s^0, ..., alpha s^(count-1)] mod p:
     int64 [2 count], setup's first 2d plaintexts (CTR_S, then CTR_AS).
 
-    s, alpha: one-element int64 tensors < p; out: where to write (a
-    contiguous int64 [2 count], e.g. the head of the message buffer).  K9's
-    messages form: on a CUDA tensor one launch that reads s and alpha on
-    the device; on the CPU, ``message_powers_plain``."""
+    s, alpha: one-element int64 tensors < p (uint32 ones are widened
+    first); out: where to write (a contiguous int64 [2 count], e.g. the
+    head of the message buffer).  K9's messages form: on a CUDA tensor one
+    launch that reads s and alpha on the device; on the CPU,
+    ``message_powers_plain``."""
     assert count >= 1
+    s, alpha = words(s), words(alpha)
     if s.device.type == "cpu":
         want = message_powers_plain(s, alpha, count)
         return want if out is None else out.copy_(want)
@@ -198,8 +216,9 @@ def poly_eval_mod_p(coeffs: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     K8's at-s form: on a CUDA tensor one launch, each polynomial a row and
     w = s^i made in the block from s read on the device (no powers
     buffer); coeffs must be contiguous there (else ValueError).  On the
-    CPU, ``poly_eval_plain``."""
+    CPU, ``poly_eval_plain``.  s: int64 or uint32, one entry."""
     _check_uint32(coeffs)
+    s = words(s)
     if coeffs.device.type == "cpu":
         return poly_eval_plain(coeffs, s)
     _check_scalar("s", s, coeffs.device)
@@ -296,12 +315,13 @@ def matvec_splits(rows: int, d: int) -> int:
 def matvec_mod_p(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_i v[..., r, i] * w[i] mod p — rows of a mod-p matvec, any d.
 
-    v: uint32 [..., m, d]; w: int64 [d]; entries < p.  Returns int64
-    [..., m] in [0, p).  K8: on a CUDA tensor, one launch of
-    ``csrc/modp.cu``, which reads v once; v and w must be contiguous there
-    (else ValueError).  On the CPU, ``matvec_plain``."""
+    v: uint32 [..., m, d]; w: int64 or uint32 [d] (``words``); entries <
+    p.  Returns int64 [..., m] in [0, p).  K8: on a CUDA tensor, one launch
+    of ``csrc/modp.cu``, which reads v once; v and w must be contiguous
+    there (else ValueError).  On the CPU, ``matvec_plain``."""
     d = v.shape[-1]
     _check_uint32(v)
+    w = words(w)
     if v.device.type == "cpu":
         return matvec_plain(v, w)
     if w.dtype != torch.int64 or w.shape != (d,) or w.device != v.device or not w.is_contiguous():

@@ -490,13 +490,16 @@ def poly_mul_mod_p(
 
     With ``mesh``, a 1-D product whose padded length n >= min_shard_n runs
     on the 4-step transform split over the ranks (``_shardable``); the
-    result is whole on every rank and equal to the one-device product."""
+    result is whole on every rank and equal to the one-device product.
+    Operands: int64 or uint32 words (``modp.words``); the product is int64."""
+    square = a is b
+    a = modp.words(a)
+    b = a if square else modp.words(b)
     la, lb = a.shape[-1], b.shape[-1]
     full = la + lb - 1
     if out_len is None:
         out_len = full
     n = _next_pow2(max(full, 2))
-    square = a is b
     if _shardable(n, a, b, mesh, min_shard_n):
         out = _poly_mul_4step(_fit_len(a, n), None if square else _fit_len(b, n), mesh)
     else:
@@ -618,8 +621,10 @@ def poly_inv_series_mod_p(
     mesh shards are one K6 launch (``_k6_newton``); above,
     each level is two three-launch K6 products (``_k6_levels``) in the
     workspace ``ws`` (int32, allocated here if missing or short).  On the
-    CPU the same levels run by ``_newton_plain`` and ``poly_mul_mod_p``."""
+    CPU the same levels run by ``_newton_plain`` and ``poly_mul_mod_p``.
+    t: int64 or uint32 words; the series is int64."""
     assert SMEM_N <= NEWTON_N <= NEWTON_MAX_N, NEWTON_N
+    t = modp.words(t)
     levels = _inv_levels(out_len)
     lead = t.shape[:-1]
     t2 = _rows(t)
@@ -651,7 +656,8 @@ def poly_true_degree(x: torch.Tensor) -> int:
 
 def poly_degree_and_lead(x: torch.Tensor) -> tuple[int, int]:
     """(true degree, its coefficient) of a 1-D polynomial in one read from
-    the device; (-1, 0) for the zero polynomial."""
+    the device; (-1, 0) for the zero polynomial.  x: int64 or uint32 words."""
+    x = modp.words(x)
     idx = torch.where(x != 0, torch.arange(x.shape[-1], device=x.device), -1).amax().reshape(1)
     deg, lead = torch.cat([idx, x.index_select(0, idx.clamp(min=0))]).tolist()
     return deg, lead if deg >= 0 else 0
@@ -689,9 +695,11 @@ def poly_div_exact_mod_p(
     ``den_degree`` (den's true degree) and ``den_lead`` (its coefficient)
     are read from the device here unless the caller gives them; given
     both, the division moves nothing from the device to the host.  With
-    ``mesh`` the large products run on the 4-step transform.
+    ``mesh`` the large products run on the 4-step transform.  num and den:
+    int64 or uint32 words; the quotient is int64.
     """
     assert num.dim() == 1 and den.dim() == 1, "division is single-polynomial"
+    num, den = modp.words(num), modp.words(den)
     ln, ld = num.shape[-1], den.shape[-1]
     if den_degree is None:
         den_degree, den_lead = poly_degree_and_lead(den)

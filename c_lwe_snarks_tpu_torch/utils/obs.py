@@ -91,6 +91,7 @@ def probe_crs(crs: tsnark.CRS, vrs: tsnark.VRS, params: Params) -> dict:
     key = sampling.PRGKey(crs.seed, crs.b_s.device)
     d = params.d
     idx = (0, 1, d - 1)
+    alpha, s = modp.words(vrs.alpha), modp.words(vrs.s)  # the VRS holds uint32
     dec_s = torch.stack([
         probe_compressed(key, params.ctr_s + i * params.ctr_ct, crs.b_s[i][None], vrs.sk, params)[0]
         for i in idx])
@@ -99,11 +100,11 @@ def probe_crs(crs: tsnark.CRS, vrs: tsnark.VRS, params: Params) -> dict:
         for i in idx])
     return {
         "s0_is_one": dec_s[0] == 1,
-        "as0_is_alpha": dec_as[0] == vrs.alpha,
-        "alpha_correlated_1": modp.mulmod_p(vrs.alpha, dec_s[1]) == dec_as[1],
-        "alpha_correlated_last": modp.mulmod_p(vrs.alpha, dec_s[2]) == dec_as[2],
-        "s1_is_s": dec_s[1] == vrs.s,
-        "s_power_last": modp.powmod_p(vrs.s, d - 1) == dec_s[2],
+        "as0_is_alpha": dec_as[0] == alpha,
+        "alpha_correlated_1": modp.mulmod_p(alpha, dec_s[1]) == dec_as[1],
+        "alpha_correlated_last": modp.mulmod_p(alpha, dec_s[2]) == dec_as[2],
+        "s1_is_s": dec_s[1] == s,
+        "s_power_last": modp.powmod_p(s, d - 1) == dec_s[2],
     }
 
 
@@ -143,5 +144,5 @@ def probe_crs_range(
     }
     if lo == 0:
         out["s0_is_one"] = dec_s[0] == 1
-        out["as0_is_alpha"] = dec_as[0] == vrs.alpha
+        out["as0_is_alpha"] = dec_as[0] == modp.words(vrs.alpha)
     return out

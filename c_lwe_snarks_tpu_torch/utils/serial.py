@@ -3,7 +3,8 @@
 
 * CRS = 40-byte seed || s-section (d x 92) || as-section (d x 92) || t (92)
   || v-section ((m-1) x 92).
-* VRS = alpha, beta, s as 8-byte LE words || sk (n x 92).
+* VRS = alpha, beta, s as 8-byte LE words || sk (n x 92); the reader
+  holds the scalars as uint32 (each < p), as the JAX package does.
 * Proof = 5 full ciphertexts h, hat_h, hat_v, v_w, b_w, each (n+1) x 92.
 * SSP buffer = t then v_0..v_{m-1}, each d uint64-LE coefficients; the
   readers narrow them to the SSP's uint32 after checking each is < p, and
@@ -85,7 +86,7 @@ def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
     words = [int.from_bytes(buf[8 * i : 8 * i + 8], "little") for i in range(3)]
     if max(words) >= params.p:
         raise ValueError("VRS scalars must be reduced mod p")
-    alpha, beta, s = (torch.tensor(w, device=device) for w in words)
+    alpha, beta, s = (torch.tensor(w, dtype=torch.uint32, device=device) for w in words)
     sk = np.frombuffer(buf, dtype=np.uint8, offset=24).reshape(n, cb)
     return tsnark.VRS(alpha=alpha, beta=beta, s=s, sk=_rows88(sk, device))
 

@@ -63,7 +63,8 @@ non-zero, and only a full pass prints the final JSON line):
    collectives would and held byte for byte against the release run, with
    the counters reset again (K1, K2, K3 and K4 at every rank's stream
    offset, K7 and K8 over a rank's rows of v, K10 on the int32 sum of the
-   parts), then the CLI under torchrun in a world of 1 over NCCL.
+   parts, K11 verifying the combined proof), then the CLI under torchrun in
+   a world of 1 over NCCL.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -101,26 +102,32 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # K6 and K7 port jnp code the JAX package compiles into its programs
     "ntt": ("c_lwe_snarks_tpu_torch/csrc/ntt.cu", "c_lwe_snarks_tpu/ops/ntt.py:266"),
     "gated_rowsum_p": ("c_lwe_snarks_tpu_torch/csrc/rowsum.cu", "c_lwe_snarks_tpu/ops/modp.py:162"),
-    # K8..K10: setup's message schedule, the verifier's evaluations at s,
+    # K8..K10: setup's message schedule, polynomials at s (K8's at-s form),
     # the digit carry fold (jnp code too)
     "matvec_mod_p": ("c_lwe_snarks_tpu_torch/csrc/modp.cu", "c_lwe_snarks_tpu/ops/modp.py:186"),
     "powers_mod_p": ("c_lwe_snarks_tpu_torch/csrc/modp.cu", "c_lwe_snarks_tpu/ops/modp.py:139"),
     "carry_fold": ("c_lwe_snarks_tpu_torch/csrc/digits.cu", "c_lwe_snarks_tpu/ops/digits.py:73"),
+    # K11: the verifier's jnp glue (five decrypts, t(s), v_0(s), the
+    # relations, test_error_ok) in one launch, and its decrypt form
+    "verify": ("c_lwe_snarks_tpu_torch/csrc/verify.cu", "c_lwe_snarks_tpu/models/snark.py:441"),
 }
 # kernels each path must launch at least once
 RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused", "ntt",
-                "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold")
+                "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold", "verify")
 STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt",
-                  "gated_rowsum_p", "matvec_mod_p", "carry_fold")
+                  "gated_rowsum_p", "carry_fold", "verify")
 # the sharded phase's parts: random_ssp's tiles reach K7; the 4-step NTT
 # needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
 SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
-                "gated_rowsum_p", "matvec_mod_p", "carry_fold")
+                "gated_rowsum_p", "matvec_mod_p", "carry_fold", "verify")
 SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
-# launches of one release run, by design: K8 t(s) and v at setup and the
-# verifier's two rows in one; K9 setup's messages; K10 setup's b-rows, the
-# prover's epilogue and its five smudges, the verifier's two decrypt folds
-RELEASE_LAUNCHES = {"matvec_mod_p": 3, "powers_mod_p": 1, "carry_fold": 5}
+# launches of one release run, by design: K8 t(s) and v at setup; K9
+# setup's messages; K10 setup's b-rows, the prover's epilogue and its five
+# smudges; K11 the whole verifier
+RELEASE_LAUNCHES = {"matvec_mod_p": 2, "powers_mod_p": 1, "carry_fold": 3, "verify": 1}
+# the release verifier's kernel launches under the profiler (108 before K11:
+# the byte products, folds, mod_p and comparisons as torch ops)
+VERIFIER_MAX_LAUNCHES = 4
 # the release run's peak device memory with the SSP held as int64, as
 # PERF.md section 5 records it (NVIDIA H100 80GB HBM3); uint32 halves v,
 # 5.33 -> 2.67 GiB
@@ -185,6 +192,12 @@ CRT_OPS = 40
 # The rounds' shuffles and ballots are a few operations a lane, not counted.
 MATVEC_OPS = 6
 MULMOD_OPS = 2 + 7
+# K11 (verify.cu): the byte products of its dots (those at digit 88 and
+# above are not needed: 88 * 89 / 2 a row), four to an integer-pipe
+# operation, as its route takes them (__dp4a); its at-s columns as K8's at-s
+# form; the folds, mod p and the relations are a few hundred operations a
+# ciphertext, not counted.
+VERIFY_DP4A_PER_ROW = 88 * 89 // 2 // 4
 FOLD_POS_OPS = 4
 BROW_POS_OPS = 4 + 3 + 8 + 3
 MAC_POS_OPS = 4 + 4 * (1 + 2 + 4)
@@ -270,9 +283,10 @@ def bound(nbytes: float, int32_ops: float, int8_ops: float = 0.0) -> dict:
 
 
 def reset_counters() -> tuple:
-    from c_lwe_snarks_tpu_torch.ops import aes, digits, eval_fused, modp, ntt
+    from c_lwe_snarks_tpu_torch.ops import aes, digits, eval_fused, modp, ntt, verify
 
-    counters = (aes.LAUNCHES, eval_fused.LAUNCHES, ntt.LAUNCHES, modp.LAUNCHES, digits.LAUNCHES)
+    counters = (aes.LAUNCHES, eval_fused.LAUNCHES, ntt.LAUNCHES, modp.LAUNCHES, digits.LAUNCHES,
+                verify.LAUNCHES)
     for c in counters:
         for name in c:
             c[name] = 0
@@ -551,7 +565,7 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
     case format of phase_kernels; the last case of each is the main path's
     largest call and is reported): setup's v, t and powers of s from a
     release random_ssp, setup's b-rows from K4's planes with the release
-    errors and messages, the verifier's rows at s, the prover's MAC planes
+    errors and messages, t and v_0 at s, the prover's MAC planes
     and smudging, and the stage-wise and sharded paths' planes."""
     import torch
 
@@ -587,7 +601,7 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
             (f"t(s) at setup: [1, {d}]", 20,
              lambda: modp.matvec_mod_p(t_row, powers), lambda: modp.matvec_plain(t_row, powers),
              bound(4 * d + 8 * (d + 1), MATVEC_OPS * d)),
-            (f"the at-s form, the verifier's t(s) and v_0(s): [2, {d}] (launch-bound)", 20,
+            (f"the at-s form, poly_eval_mod_p at t and v_0: [2, {d}] (launch-bound)", 20,
              lambda: modp.poly_eval_mod_p(rows2, s), lambda: modp.poly_eval_plain(rows2, s),
              bound(4 * 2 * d + 8 * (1 + 2), at_s_ops(2, d))),
             (f"setup's v_i(s): v [{m}, {d}]", 10,
@@ -618,6 +632,83 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
              lambda: dg.b_rows_plain(v_lo, v_hi, errs, msgs),
              bound(b_rows_bytes(n_enc), BROW_POS_OPS * n_enc * 88))],
     }
+
+
+def release_proof(P, crs_key, ent_key) -> tuple:
+    """(crs, vrs, ssp, proof) of one release run through the package's entry
+    points (random_ssp, setup, the one-pass prover)."""
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    wits, ssp = tssp.random_ssp(ent_key, 0, P)
+    crs, vrs = tsnark.setup(crs_key, ent_key, off_setup, ssp, P)
+    proof = tsnark.prover(crs_key, ent_key, off_setup + tsnark.setup_entropy_bytes(P), crs, ssp,
+                          wits, P)
+    return crs, vrs, ssp, proof
+
+
+def verify_bound(k: int, n: int, d: int = 0) -> dict:
+    """K11's bound: k ciphertexts [n+1, 88] and sk read once, the decrypts
+    written once, a dp4a for four byte products of the dots; with d (the
+    verifier form) t and v_0 (uint32) and the three scalars read, the eight
+    words and the verdict written, and K8's at-s count for the two rows."""
+    nbytes = k * (n + 1) * 88 + n * 88 + 8 * k
+    ops = k * n * VERIFY_DP4A_PER_ROW
+    if d:
+        nbytes += 2 * 4 * d + 3 * 4 + 8 * (8 - k) + 1
+        ops += at_s_ops(2, d)
+    return bound(nbytes, ops)
+
+
+def verify_cases(P, crs_key, ent_key, worse) -> dict:
+    """K11's cases (the case format of phase_kernels; the verifier form last,
+    the release main path's call) after its edges on a release proof, each
+    against its plain version on the same inputs: the honest proof
+    accepted; each field's b row and one a row tampered, and a wrong alpha,
+    rejected, with the eight words equal; decrypts at k = 1, 5 and 7 with b
+    < <a, sk>, every byte 255, and the probes' 256 CRS terms."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.ops import sampling, verify
+
+    n, d = P.n, P.d
+    crs, vrs, ssp, proof = release_proof(P, crs_key, ent_key)
+    cts = (proof.h, proof.hat_h, proof.hat_v, proof.v_w, proof.b_w)
+    args = (vrs.sk, ssp.t, ssp.v[0], vrs.s, vrs.alpha, vrs.beta, P.log_smudging // 8)
+    wrong = ((vrs.alpha.to(torch.int64) + 1) % P.p).to(torch.uint32)
+    variants = [("honest", cts, args, True)]
+    for e, name in enumerate(("h", "hat_h", "hat_v", "v_w", "b_w")):
+        for row in (n, 11):
+            bad = list(cts)
+            bad[e] = cts[e].clone()
+            bad[e][row, 5] ^= 1
+            variants.append((f"{name}[{row}] tampered", tuple(bad), args, False))
+    variants.append(("alpha + 1", cts, (*args[:4], wrong, *args[5:]), False))
+    verdicts = []
+    for label, c, a, accept in variants:
+        ok, words = verify.verify(c, *a)
+        want_ok, want_words = verify.verify_plain(c, *a)
+        worse("verify", max_abs_err(words, want_words))
+        worse("verify", int(bool(ok) != bool(want_ok)) + int(bool(ok) != accept))
+        verdicts.append(f"{label} {'accepted' if bool(ok) else 'rejected'}")
+    print(f"phase kernels: verify on a release proof: {'; '.join(verdicts)}")
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    for k in (1, 5, 7):
+        ct = torch.randint(0, 256, (k, n + 1, 88), generator=gen, device=DEVICE, dtype=torch.uint8)
+        ct[0, n, 1:] = 0  # b < 256 <= <a, sk>
+        if k > 1:
+            ct[-1] = 255
+        worse("verify", max_abs_err(verify.decrypt(ct, vrs.sk), verify.decrypt_plain(ct, vrs.sk)))
+    probe = tlwe.ct_import(sampling.PRGKey(crs.seed, DEVICE), P.ctr_s, crs.b_s[:TILE], P)
+    return {"verify": [
+        (f"the decrypt form, the probes' {TILE} CRS terms: [{TILE}, {n + 1}, 88]", 20,
+         lambda: verify.decrypt(probe, vrs.sk), lambda: verify.decrypt_plain(probe, vrs.sk),
+         verify_bound(TILE, n)),
+        (f"the verifier form, a release proof: 5 x [{n + 1}, 88], t and v_0 [{d}]", 20,
+         lambda: verify.verify(cts, *args)[1], lambda: verify.verify_plain(cts, *args)[1],
+         verify_bound(5, n, d))]}
 
 
 I64_MAX = (1 << 63) - 1
@@ -991,6 +1082,7 @@ def phase_kernels(results: dict) -> None:
     }
     cases.update(poly_cases(P, ent_key))
     cases.update(schedule_cases(P, crs_key, ent_key))
+    cases.update(verify_cases(P, crs_key, ent_key, worse))
     for name, shapes in cases.items():
         for shape, reps, kern, plain, bnd, *sets in shapes:
             want, plain_ms = timed(plain)
@@ -1184,7 +1276,7 @@ def phase_profile(label: str) -> None:
                 aes.keystream_blocks(ent_key.aes, 0, nblocks, version=version)
                 for _ in range(reps)], reps, label)
     # K8, K9 and K10 device-side at the main path's shapes: setup's v [m, d]
-    # and its messages form at d, the verifier's two rows at s, the b-rows
+    # and its messages form at d, t and v_0 at s, the b-rows
     # of 2d + m encryptions (K4's planes made once, outside), the prover's
     # MAC planes and smudging, the stage-wise and sharded paths' planes
     s = torch.tensor(123456789, dtype=torch.int64, device=DEVICE)
@@ -1202,10 +1294,16 @@ def phase_profile(label: str) -> None:
     planes_sets = rotating(dg.carry_fold, planes_set(gen, P.n), lambda: planes_set(gen, P.n),
                            8 * 5 * (P.n + 1) * 88)
     evals, draws = smudge_case(P, ent_key)
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.ops import verify
+
+    crs, vrs, _, proof = release_proof(P, sampling.PRGKey(CRS_SEED, DEVICE), ent_key)
+    cts = (proof.h, proof.hat_h, proof.hat_v, proof.v_w, proof.b_w)
+    probe = tlwe.ct_import(sampling.PRGKey(crs.seed, DEVICE), P.ctr_s, crs.b_s[: TILE], P)
     for tag, kernel, counter, fn, launches in (
             (f"K8 at setup's v [{P.m}, {P.d}]", "matvec_kernel", "matvec_mod_p",
              lambda: modp.matvec_mod_p(ssp.v, powers), modp.LAUNCHES),
-            (f"K8's at-s form at the verifier's [2, {P.d}]", "matvec_kernel", "matvec_mod_p",
+            (f"K8's at-s form at t and v_0 [2, {P.d}]", "matvec_kernel", "matvec_mod_p",
              lambda: modp.poly_eval_mod_p(rows2, s), modp.LAUNCHES),
             (f"K9 at {P.d} powers", "powers_kernel", "powers_mod_p",
              lambda: modp.powers_mod_p(s, P.d), modp.LAUNCHES),
@@ -1218,11 +1316,16 @@ def phase_profile(label: str) -> None:
             ("K10's smudge form, five draws on four rows", "carry_fold_kernel", "carry_fold",
              lambda: dg.smudge_draws(evals, draws, tsnark.SMUDGE_TARGETS), dg.LAUNCHES),
             (f"K10's planes form at [5, {P.n + 1}, 88] int64, input sets over L2",
-             "carry_fold_kernel", "carry_fold", planes_sets, dg.LAUNCHES)):
+             "carry_fold_kernel", "carry_fold", planes_sets, dg.LAUNCHES),
+            ("K11's verifier form on a release proof", "verify_kernel", "verify",
+             lambda: verify.verify(cts, vrs.sk, ssp.t, ssp.v[0], vrs.s, vrs.alpha, vrs.beta,
+                                   P.log_smudging // 8), verify.LAUNCHES),
+            (f"K11's decrypt form at the probes' {TILE} CRS terms", "verify_kernel", "verify",
+             lambda: verify.decrypt(probe, vrs.sk), verify.LAUNCHES)):
         fn()
         profiled_line(tag, kernel, counter, lambda: [fn() for _ in range(reps)], reps, label,
                       launches)
-    del ssp, v_lo, v_hi, mac_sets, planes_sets
+    del ssp, v_lo, v_hi, mac_sets, planes_sets, crs, vrs, proof, cts, probe
     host_issue(label)
     # the release prover after a warm call, and what its polynomial stage
     # launches by kernel name (tools/profile_prover.py); then setup and
@@ -1232,7 +1335,11 @@ def phase_profile(label: str) -> None:
     import profile_stage
 
     profile_prover.run(label)
-    profile_stage.run(("setup", "verifier"), label)
+    stages = profile_stage.run(("setup", "verifier"), label)
+    traced = stages["verifier"]["kernel_launches"]
+    print(f"phase profile: the release verifier traced {traced} kernel launches (at most "
+          f"{VERIFIER_MAX_LAUNCHES}; 108 before K11) [{label}]")
+    check(0 < traced <= VERIFIER_MAX_LAUNCHES, f"the release verifier launched {traced} kernels")
 
 
 def digests(run, P) -> dict:
@@ -1322,8 +1429,8 @@ def phase_release(label: str):
     check(rejected, "release: a tampered proof was accepted")
     check(dec_s0 == 1 and dec_as0 == int(run.vrs.alpha), "release: CRS decrypt probe")
     # setup's message schedule (K9, K8), the prover's evaluations and
-    # smudging (K3, K10's MAC-plane and smudge forms) and the verifier (K10,
-    # K8's at-s form), each once with any host sync an error, up to the
+    # smudging (K3, K10's MAC-plane and smudge forms) and the verifier
+    # (K11), each once with any host sync an error, up to the
     # verifier's bool tensor; the prover's polynomials come first, outside
     vrs, ssp = run.vrs, run.ssp
     crs_key, ent_key = sampling.PRGKey(CRS_SEED, DEVICE), sampling.PRGKey(ENT_SEED, DEVICE)
@@ -1604,10 +1711,11 @@ def phase_sharded(run, label: str) -> dict:
             acc += pmesh.eval_poly_multi_part(r, world, crs_key, P.ctr_s, b_all, coeffs, P).int()
         proof = tsnark.smudge_proof(ent_key, off_prove, dg.carry_fold(acc), P)
         same_proof = serial.proof_to_bytes(proof, P) == serial.proof_to_bytes(run.proof, P)
+        accepted = bool(tsnark.verifier(vrs, ssp, proof, P))
         print(f"phase sharded: W={world}, every rank's part on the card, combined: v rows equal="
               f"{same_v}, t equal={same_t}, CRS rows equal={same_rows}, proof bytes equal="
-              f"{same_proof} to the one-device run (tolerance 0)")
-        check(same_v and same_t and same_rows and same_proof,
+              f"{same_proof} to the one-device run (tolerance 0), verified={accepted}")
+        check(same_v and same_t and same_rows and same_proof and accepted,
               f"sharded: W={world} parts differ from the one-device run")
     launches = read_counters(counters)
     print(f"phase sharded: launches {launches}")

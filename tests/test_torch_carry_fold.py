@@ -38,12 +38,13 @@ from c_lwe_snarks_tpu_torch.ops import digits as tdg
 torch.set_num_threads(1)
 
 P = (1 << 32) - 5
-SOURCE = (pathlib.Path(tdg.__file__).resolve().parent.parent / "csrc" / "digits.cu").read_text()
+CSRC = pathlib.Path(tdg.__file__).resolve().parent.parent / "csrc"
+SOURCE = (CSRC / "digits.cu").read_text() + (CSRC / "carry.cuh").read_text()  # the fold's header
 _jfold = jax.jit(jdg.carry_fold, static_argnums=1)
 
 
 def constant(name: str) -> int:
-    """An integer constexpr of digits.cu (a literal)."""
+    """An integer constexpr of digits.cu or its fold's header (a literal)."""
     m = re.search(rf"constexpr int {name} = (\d+);", SOURCE)
     assert m, name
     return int(m.group(1))

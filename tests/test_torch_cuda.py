@@ -705,10 +705,9 @@ def test_k10_b_rows(cuda):
 def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
     """Setup's message schedule (K9's messages form, K8), the prover's
     evaluations and smudging (K3, K10's MAC-plane and smudge forms) and the
-    verifier (K10 in its decrypts, K8's at-s form) make no host sync, after
-    one warm run; K9 launches once, K8 three times (t(s), v and the
-    verifier's two rows in one), K10 four times (the epilogue, the five
-    smudges, the two decrypt folds); the results equal the plain path's."""
+    verifier (K11's verifier form) make no host sync, after one warm run;
+    K9 launches once, K8 twice (t(s) and v), K10 twice (the epilogue, the
+    five smudges), K11 once; the results equal the plain path's."""
     P = Params(d=1 << 12, m=64, n=32)
     key = sampling.PRGKey(SEED, cuda)
     ent = sampling.PRGKey(bytes([1] * 40), cuda)
@@ -722,7 +721,9 @@ def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
     delta, w, v, h = tsnark.prover_polys(ent, off_prove, ssp, run.witness, P)
     from c_lwe_snarks_tpu_torch.ops import digits as dg
 
-    counters = {**modp.LAUNCHES, **dg.LAUNCHES}
+    from c_lwe_snarks_tpu_torch.ops import verify
+
+    counters = {**modp.LAUNCHES, **dg.LAUNCHES, **verify.LAUNCHES}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -734,8 +735,9 @@ def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert modp.LAUNCHES["powers_mod_p"] - counters["powers_mod_p"] == 1
-    assert modp.LAUNCHES["matvec_mod_p"] - counters["matvec_mod_p"] == 3
-    assert dg.LAUNCHES["carry_fold"] - counters["carry_fold"] == 4
+    assert modp.LAUNCHES["matvec_mod_p"] - counters["matvec_mod_p"] == 2
+    assert dg.LAUNCHES["carry_fold"] - counters["carry_fold"] == 2
+    assert verify.LAUNCHES["verify"] - counters["verify"] == 1
     assert bool(ok)
     _eq(proof.stack(), run.proof.stack())
     cpu_ssp = tssp.SSP(t=ssp.t.cpu(), v=ssp.v.cpu())
@@ -743,3 +745,70 @@ def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
                                  lambda powers: modp.matvec_mod_p(cpu_ssp.v, powers), P.d, P.m)
     _eq(msgs, want)
     assert int(msgs[1]) == int(vrs.s) and int(msgs[P.d]) == int(vrs.alpha)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(200, 1 << 12), (1470, 3000)])
+def test_k11_verify(cuda, n, d):
+    """K11's verifier form against its plain version on the CPU (the verdict
+    and the eight words, tolerance 0): the honest proof, each field's b row
+    and one a row tampered, a wrong alpha; one launch each and no host sync;
+    a ragged last slice of rows (n = 200) and of columns (d = 3000)."""
+    from c_lwe_snarks_tpu_torch.ops import verify
+
+    P = Params(d=d, m=64, n=n)
+    run = run_protocol(P, cuda, SEED, bytes([1] * 40))
+    assert run.verified
+    vrs, ssp = run.vrs, run.ssp
+    assert vrs.alpha.dtype == vrs.beta.dtype == vrs.s.dtype == torch.uint32
+    cases = [("honest", run.proof.stack(), vrs.alpha)]
+    for e, name in enumerate(("h", "hat_h", "hat_v", "v_w", "b_w")):
+        for row in (n, 5):
+            bad = run.proof.stack().clone()
+            bad[e, row, 3] ^= 1
+            cases.append((f"{name}[{row}]", bad, vrs.alpha))
+    wrong = ((vrs.alpha.to(torch.int64) + 1) % modp.P).to(torch.uint32)
+    cases.append(("alpha + 1", run.proof.stack(), wrong))
+    for label, cts, alpha in cases:
+        args = (vrs.sk, ssp.t, ssp.v[0], vrs.s, alpha, vrs.beta, P.log_smudging // 8)
+        before = verify.LAUNCHES["verify"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok, words = verify.verify(tuple(cts.unbind()), *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert verify.LAUNCHES["verify"] == before + 1
+        want_ok, want_words = verify.verify_plain(
+            tuple(cts.cpu().unbind()), *(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+        _eq(words, want_words)
+        assert bool(ok) == bool(want_ok) == (label == "honest"), label
+    with pytest.raises(ValueError, match="t:"):
+        verify.verify(tuple(run.proof.stack().unbind()), vrs.sk, ssp.t.to(torch.int64), ssp.v[0],
+                      vrs.s, vrs.alpha, vrs.beta, P.log_smudging // 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(1, 1), (5, 32), (7, 33), (300, 1470)])
+def test_k11_decrypt(cuda, k, n):
+    """K11's decrypt form against its plain version: k ciphertexts in one
+    launch, one with b < <a, sk>, one at every byte 255, ragged slices."""
+    from c_lwe_snarks_tpu_torch.models import lwe as tlwe
+    from c_lwe_snarks_tpu_torch.ops import verify
+
+    rng = np.random.default_rng(k)
+    ct = torch.from_numpy(rng.integers(0, 256, size=(k, n + 1, 88), dtype=np.uint8))
+    sk = torch.from_numpy(rng.integers(0, 256, size=(n, 88), dtype=np.uint8))
+    ct[0, n, 1:] = 0  # b < 256
+    if k > 1:
+        ct[-1] = 255
+    before = verify.LAUNCHES["verify"]
+    got = verify.decrypt(ct.to(cuda), sk.to(cuda))
+    assert verify.LAUNCHES["verify"] == before + 1
+    _eq(got, verify.decrypt_plain(ct, sk))
+    _eq(tlwe.decrypt(ct[0].to(cuda), sk.to(cuda), Params(d=16, m=8, n=n)),
+        verify.decrypt_plain(ct[0], sk))
+    shifted = torch.empty(ct.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(ct.shape)
+    with pytest.raises(ValueError, match="aligned"):  # rows are staged a word a load
+        verify.decrypt(shifted, sk.to(cuda))
+

@@ -90,7 +90,7 @@ def test_crs_from_bytes_reads_jax_bytes(jax_run, port_state):
 def test_vrs_from_bytes_reads_jax_bytes(jax_run, port_state):
     vrs, jvrs = port_state["vrs"], jax_run[3]
     for name in ("alpha", "beta", "s"):
-        _same(getattr(vrs, name), getattr(jvrs, name), torch.int64)
+        _same(getattr(vrs, name), getattr(jvrs, name), torch.uint32)  # VRSDev's type
     _same(vrs.sk, jvrs.sk, torch.uint8)
 
 
