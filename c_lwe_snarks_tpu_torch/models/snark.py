@@ -34,6 +34,7 @@ reproducible and byte-identical to the JAX package given equal seeds.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +44,7 @@ from ..ops import modp, ntt, sampling, verify
 from ..parallel import mesh as pmesh
 from ..parallel.multihost import chunk_bounds
 from ..utils.params import Params
+from ..utils.spans import span
 from . import lwe as tlwe
 from . import ssp as tssp
 
@@ -172,35 +174,38 @@ def setup(
     ``mesh`` (ssp.v: the rank's rows, ``parallel.mesh.random_ssp_sharded``)
     each rank evaluates its rows of v at s and draws and encrypts its
     chunk of the terms; every rank returns the whole CRS."""
-    d, m, n = params.d, params.m, params.n
-    scalars = modp.bytes_to_u64_mod_p(
-        sampling.keystream_bytes(ent_key, ent_offset, 24).reshape(3, 8))
-    alpha, beta, s = scalars  # int64 working copies: K9 reads s and alpha on the device
-    sk = tlwe.key_gen(ent_key, ent_offset + 24, params)
-
+    d, m = params.d, params.m
     impl = "auto" if tile is None else "scan"
     n_enc = 2 * d + 1 + (m - 1)
-    if mesh is None:
-        msgs = setup_messages(
-            alpha, beta, s, ssp.t, lambda powers: modp.matvec_mod_p(ssp.v, powers), d, m)
-        rows = tlwe.encrypt_section(
-            crs_key, params.ctr_s, sk, msgs, setup_errs(ent_key, ent_offset, 0, n_enc, params),
-            params, tile=tile, impl=impl)
-    else:
-        _, rank, world = pmesh.axis(mesh)
-        if (ssp.row0, ssp.row0 + ssp.v.shape[0]) != chunk_bounds(m, rank, world):
-            raise ValueError("setup with a mesh takes the rank's rows of v (random_ssp_sharded)")
-        msgs = setup_messages(
-            alpha, beta, s, ssp.t, lambda powers: pmesh.v_at_s_sharded(ssp.v, powers, mesh, m),
-            d, m)
-        lo, hi = chunk_bounds(n_enc, rank, world)
-        rows = pmesh.encrypt_section_sharded(
-            crs_key, params.ctr_s, sk, msgs, setup_errs(ent_key, ent_offset, lo, hi, params),
-            params, mesh, tile=tile, impl=impl)
-    crs = CRS(seed=crs_key.seed, b_s=rows[:d], b_as=rows[d : 2 * d],
-              b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
-    stored = scalars.to(torch.uint32)  # the VRS holds them as the JAX package does
-    return crs, VRS(alpha=stored[0], beta=stored[1], s=stored[2], sk=sk)
+    with span("lwe.setup"):
+        if mesh is None:
+            v_at_s, (lo, hi) = functools.partial(modp.matvec_mod_p, ssp.v), (0, n_enc)
+        else:
+            _, rank, world = pmesh.axis(mesh)
+            if (ssp.row0, ssp.row0 + ssp.v.shape[0]) != chunk_bounds(m, rank, world):
+                raise ValueError(
+                    "setup with a mesh takes the rank's rows of v (random_ssp_sharded)")
+            v_at_s = functools.partial(pmesh.v_at_s_sharded, ssp.v, mesh=mesh, total=m)
+            lo, hi = chunk_bounds(n_enc, rank, world)
+        with span("lwe.setup.keys"):
+            scalars = modp.bytes_to_u64_mod_p(
+                sampling.keystream_bytes(ent_key, ent_offset, 24).reshape(3, 8))
+            alpha, beta, s = scalars  # int64 working copies: K9 reads s and alpha on the device
+            sk = tlwe.key_gen(ent_key, ent_offset + 24, params)
+        with span("lwe.setup.messages"):
+            msgs = setup_messages(alpha, beta, s, ssp.t, v_at_s, d, m)
+        with span("lwe.setup.encrypt"):
+            errs = setup_errs(ent_key, ent_offset, lo, hi, params)
+            if mesh is None:
+                rows = tlwe.encrypt_section(
+                    crs_key, params.ctr_s, sk, msgs, errs, params, tile=tile, impl=impl)
+            else:
+                rows = pmesh.encrypt_section_sharded(
+                    crs_key, params.ctr_s, sk, msgs, errs, params, mesh, tile=tile, impl=impl)
+        crs = CRS(seed=crs_key.seed, b_s=rows[:d], b_as=rows[d : 2 * d],
+                  b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
+        stored = scalars.to(torch.uint32)  # the VRS holds them as the JAX package does
+        return crs, VRS(alpha=stored[0], beta=stored[1], s=stored[2], sk=sk)
 
 
 # --------------------------------------------------------------------------
@@ -229,22 +234,23 @@ def prover_polys(
     K1 for delta, K7 for the row-sum, K6 for v^2 and the division).  t
     and v_0 are widened to int64 words once each; K7 reads v as it is."""
     d, m = params.d, params.m
-    t = ssp.t.to(torch.int64)
-    t_degree, t_lead = ntt.poly_degree_and_lead(t)
-    delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
-    if mesh is None:
-        rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
-    else:
-        gate = F.pad(witness[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
-        rowsum, v0 = pmesh.gated_rowsum_sharded(ssp, gate, mesh), pmesh.row_zero(ssp, mesh)
-    w = modp.addmod_p(modp.mulmod_p(delta, t), rowsum)
-    v = modp.addmod_p(v0.to(torch.int64), w)
-    num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
-    num[0] = modp.submod_p(num[0], 1)
-    # t is whole on every rank of a mesh, so every rank takes the same branch
-    # of the division and issues the same collectives
-    h = ntt.poly_div_exact_mod_p(num, t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
-    return delta, w, v, h
+    with span("lwe.prover.polys"):
+        t = ssp.t.to(torch.int64)
+        t_degree, t_lead = ntt.poly_degree_and_lead(t)
+        delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
+        if mesh is None:
+            rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
+        else:
+            gate = F.pad(witness[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
+            rowsum, v0 = pmesh.gated_rowsum_sharded(ssp, gate, mesh), pmesh.row_zero(ssp, mesh)
+        w = modp.addmod_p(modp.mulmod_p(delta, t), rowsum)
+        v = modp.addmod_p(v0.to(torch.int64), w)
+        num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
+        num[0] = modp.submod_p(num[0], 1)
+        # t is whole on every rank of a mesh, so every rank takes the same branch
+        # of the division and issues the same collectives
+        h = ntt.poly_div_exact_mod_p(num, t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
+        return delta, w, v, h
 
 
 def onepass_terms(
@@ -364,12 +370,16 @@ def prover(
     ``mesh`` (ssp.v: the rank's rows) the work splits over the ranks as
     ``prover_polys`` and the evaluations say; every rank returns the
     whole proof."""
-    delta, w, v, h = prover_polys(ent_key, ent_offset, ssp, witness, params, mesh=mesh)
-    if tile is None:
-        evals = _prover_evals_onepass(crs_key, crs, w, h, v, delta, witness, params, mesh)
-    else:
-        evals = _prover_evals_stagewise(crs_key, crs, w, h, v, delta, witness, params, tile, mesh)
-    return smudge_proof(ent_key, ent_offset, evals, params)
+    with span("lwe.prover"):
+        # through the module's name, so that a wrapper put there sees the call
+        delta, w, v, h = prover_polys(ent_key, ent_offset, ssp, witness, params, mesh=mesh)
+        with span("lwe.prover.evals"):
+            if tile is None:
+                evals = _prover_evals_onepass(crs_key, crs, w, h, v, delta, witness, params, mesh)
+            else:
+                evals = _prover_evals_stagewise(
+                    crs_key, crs, w, h, v, delta, witness, params, tile, mesh)
+        return smudge_proof(ent_key, ent_offset, evals, params)
 
 
 # the evaluation each smudging draw lands on, in draw order h, hat_h, hat_v,
@@ -385,14 +395,15 @@ def smudge_proof(ent_key: sampling.PRGKey, ent_offset: int, evals, params: Param
     evals: uint8 [5, n+1, 88], whose b rows are smudged in place (a tuple
     of five is stacked first); on the card all five draws are one launch
     of K10's smudge form, the signs read on the device."""
-    if not isinstance(evals, torch.Tensor):
-        evals = torch.stack(list(evals))
-    draws = sampling.sample_digit_rows(
-        ent_key, ent_offset + 8, 5, draw_bytes=smudge_entropy_bytes(params),
-        ndigits=smudge_entropy_bytes(params))  # 80 digit bytes, then the sign byte
-    dg.smudge_draws(evals, draws, SMUDGE_TARGETS)
-    v_w, h_ct, hat_v, hat_h, b_w = evals
-    return Proof(h=h_ct, hat_h=hat_h, hat_v=hat_v, v_w=v_w, b_w=b_w)
+    with span("lwe.prover.smudge"):
+        if not isinstance(evals, torch.Tensor):
+            evals = torch.stack(list(evals))
+        draws = sampling.sample_digit_rows(
+            ent_key, ent_offset + 8, 5, draw_bytes=smudge_entropy_bytes(params),
+            ndigits=smudge_entropy_bytes(params))  # 80 digit bytes, then the sign byte
+        dg.smudge_draws(evals, draws, SMUDGE_TARGETS)
+        v_w, h_ct, hat_v, hat_h, b_w = evals
+        return Proof(h=h_ct, hat_h=hat_h, hat_v=hat_v, v_w=v_w, b_w=b_w)
 
 
 # --------------------------------------------------------------------------
@@ -420,9 +431,10 @@ def verifier(vrs: VRS, ssp: tssp.SSP, proof: Proof, params: Params) -> torch.Ten
     verdict a device bool with no host sync; on the CPU its plain version.
     Reads t and v_0 of the SSP (a rank's rows of v hold v_0 on rank 0
     only: ``parallel.mesh.row_zero``)."""
-    if ssp.row0:
-        raise ValueError("the verifier needs v_0; this SSP holds rows from row0 on")
-    cts = (proof.h, proof.hat_h, proof.hat_v, proof.v_w, proof.b_w)
-    ok, _ = verify.verify(cts, vrs.sk, ssp.t, ssp.v[0], vrs.s, vrs.alpha, vrs.beta,
-                          params.log_smudging // 8)
-    return ok
+    with span("lwe.verifier"):
+        if ssp.row0:
+            raise ValueError("the verifier needs v_0; this SSP holds rows from row0 on")
+        cts = (proof.h, proof.hat_h, proof.hat_v, proof.v_w, proof.b_w)
+        ok, _ = verify.verify(cts, vrs.sk, ssp.t, ssp.v[0], vrs.s, vrs.alpha, vrs.beta,
+                              params.log_smudging // 8)
+        return ok

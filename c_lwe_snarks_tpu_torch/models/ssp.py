@@ -17,6 +17,7 @@ import torch
 
 from ..ops import modp, sampling
 from ..utils.params import Params
+from ..utils.spans import span
 
 
 @dataclasses.dataclass
@@ -110,6 +111,7 @@ def random_ssp(
 ) -> tuple[torch.Tensor, SSP]:
     """(witness bits uint8 [m], SSP) from the entropy stream at byte_offset;
     ``tile`` rows of v a K2 launch (``gen_v``)."""
-    wits, mask, ctr0 = witness_and_mask(key, byte_offset, params)
-    v, t = gen_v(key, ctr0, mask, params.d, tile=tile)
-    return wits, SSP(t=finish_t(t), v=v)
+    with span("lwe.random_ssp"):
+        wits, mask, ctr0 = witness_and_mask(key, byte_offset, params)
+        v, t = gen_v(key, ctr0, mask, params.d, tile=tile)
+        return wits, SSP(t=finish_t(t), v=v)

@@ -38,11 +38,13 @@ import numpy as np
 import torch
 
 from ..utils import aes_host as host_aes
+from ..utils import spans
 from . import _build, sbox_bp
 from .bitslice import transpose32
 
 MASK32 = 0xFFFFFFFF
-LAUNCHES = {"keystream_words": 0, "keystream_fold_p": 0, "keystream_blocks_v1": 0}
+LAUNCHES = spans.count_launches(
+    {"keystream_words": 0, "keystream_fold_p": 0, "keystream_blocks_v1": 0})
 
 
 @dataclasses.dataclass(frozen=True)

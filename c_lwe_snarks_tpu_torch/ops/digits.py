@@ -28,12 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import spans
 from . import _build
 
 DIGITS = 88  # mod-2^704 width in base-256 digits
 FULL_DIGITS = 92  # PRG bytes per sampled value (LOGQ_BYTES, src/lwe.h:29)
 
-LAUNCHES = {"carry_fold": 0}
+LAUNCHES = spans.count_launches({"carry_fold": 0})
 _P = (1 << 32) - 5
 
 

@@ -27,11 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from . import _build, aes
 from . import digits as dg
 from . import sampling
 
-LAUNCHES = {"eval_mac_planes": 0, "encrypt_b_fused": 0}
+LAUNCHES = spans.count_launches({"eval_mac_planes": 0, "encrypt_b_fused": 0})
 _PLAIN_ROWS = 32  # ciphertexts per plain-version chunk (bounds the float64 temporaries)
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from . import _build
 
 P = (1 << 32) - 5  # plaintext modulus (GAMMA_P)
@@ -52,7 +53,7 @@ MATVEC_MAX_D = 1 << 37
 # below 2^53 for fewer than 2^21 columns
 _MATVEC_PLAIN_COLS = 1 << 20
 
-LAUNCHES = {"gated_rowsum_p": 0, "matvec_mod_p": 0, "powers_mod_p": 0}
+LAUNCHES = spans.count_launches({"gated_rowsum_p": 0, "matvec_mod_p": 0, "powers_mod_p": 0})
 
 
 def words(x):

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import spans
 from . import _build, modp
 
 NTT_PRIMES = (2013265921, 1811939329, 2281701377)  # 15*2^27+1, 27*2^26+1, 17*2^27+1
@@ -37,7 +38,7 @@ SMEM_N = 4096  # residues of one prime a K6 pass holds (csrc/ntt.cu: kSmemN); ab
 NEWTON_N = 4096  # the Newton launch takes every level of product length n <= NEWTON_N
 NEWTON_MAX_N = 16384  # the longest n a Newton CTA holds (csrc/ntt.cu: kNewtonMaxN)
 
-LAUNCHES = {"ntt": 0}
+LAUNCHES = spans.count_launches({"ntt": 0})
 
 
 @functools.cache
@@ -659,6 +660,7 @@ def poly_degree_and_lead(x: torch.Tensor) -> tuple[int, int]:
     the device; (-1, 0) for the zero polynomial.  x: int64 or uint32 words."""
     x = modp.words(x)
     idx = torch.where(x != 0, torch.arange(x.shape[-1], device=x.device), -1).amax().reshape(1)
+    spans.sync("ntt.poly_degree_and_lead", x.device)
     deg, lead = torch.cat([idx, x.index_select(0, idx.clamp(min=0))]).tolist()
     return deg, lead if deg >= 0 else 0
 

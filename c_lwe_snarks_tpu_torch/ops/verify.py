@@ -24,10 +24,11 @@ import functools
 
 import torch
 
+from ..utils import spans
 from . import _build, modp
 from . import digits as dg
 
-LAUNCHES = {"verify": 0}
+LAUNCHES = spans.count_launches({"verify": 0})
 DIGITS = dg.DIGITS
 SLICE_ROWS = 32  # rows of sk a decrypt block takes (csrc/verify.cu: kSliceRows)
 AT_S_COLS = 2048  # columns of t and v_0 an at-s block takes (kAtSCols)

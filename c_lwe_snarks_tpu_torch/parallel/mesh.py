@@ -45,6 +45,7 @@ from ..models import ssp as tssp
 from ..ops import digits as dg
 from ..ops import modp, sampling
 from ..utils.params import Params
+from ..utils.spans import span
 from .multihost import chunk_bounds, global_mesh, initialize
 
 
@@ -125,9 +126,10 @@ def random_ssp_sharded(
     column sums are < p each: one int64 ``all_reduce``, ``% p``, then
     ``ssp.finish_t``."""
     group, rank, world = axis(mesh)
-    wits, v, t, lo = random_ssp_part(rank, world, key, byte_offset, params)
-    dist.all_reduce(t, group=group)
-    return wits, tssp.SSP(t=tssp.finish_t(t % modp.P), v=v, row0=lo)
+    with span("lwe.random_ssp"):
+        wits, v, t, lo = random_ssp_part(rank, world, key, byte_offset, params)
+        dist.all_reduce(t, group=group)
+        return wits, tssp.SSP(t=tssp.finish_t(t % modp.P), v=v, row0=lo)
 
 
 def v_at_s_sharded(

@@ -1,8 +1,12 @@
-"""Observability: stage timers, a profiler hook and the decrypt-probes.
+"""Observability: stage timers, the port's spans, a profiler hook and the
+decrypt-probes.
 
 Port of ``c_lwe_snarks_tpu/utils/obs.py``.  PyTorch returns before a CUDA
 launch finishes, so ``timeit`` calls ``torch.cuda.synchronize()`` before
 starting and before stopping; a stage's time then covers its device work.
+The port's spans and counters (``span``, ``recording``, ``records``,
+``summary``, ``sync``: ``utils/spans.py``) record while the profiler runs
+or inside ``recording()``; ``profile`` writes their summary beside its trace.
 The designated-verifier decrypt-probe is the reference's de-facto
 debugging tool: decrypt intermediate ciphertexts mid-protocol and check
 algebraic invariants mod p (src/test_snark.c:40-70).
@@ -11,6 +15,7 @@ algebraic invariants mod p (src/test_snark.c:40-70).
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import time
@@ -21,6 +26,7 @@ from ..models import lwe as tlwe
 from ..models import snark as tsnark
 from ..ops import modp, sampling
 from .params import Params
+from .spans import recording, records, reset, span, summary, sync  # noqa: F401
 
 
 def _sync(device) -> None:
@@ -45,8 +51,10 @@ def timeit(name: str, device="cuda", *, out: dict | None = None, file=sys.stderr
 def profile(logdir: str):
     """torch.profiler trace (CPU and CUDA activities) around a block.
 
-    Writes ``trace.json`` (chrome trace format) into ``logdir`` and yields
-    the profiler, whose ``key_averages()`` hold the sums by kernel."""
+    Writes ``trace.json`` (chrome trace format) and ``spans.json`` (the
+    port's spans of the block by name: ``spans.summary``) into ``logdir``
+    and yields the profiler, whose ``key_averages()`` hold the sums by
+    kernel."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -54,9 +62,12 @@ def profile(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    first = len(records())
     with torch_profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump(summary(since=first), f, indent=1)
     print(f"[profile] trace written to {logdir}", file=sys.stderr)
 
 

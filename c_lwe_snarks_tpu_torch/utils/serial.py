@@ -12,6 +12,9 @@
 
 Stored rows are the 88 live digits zero-padded to 92 bytes.  The readers
 put their tensors on the card unless the caller names another device.
+Each reader and writer of a whole artifact is a span
+(``lwe.serial.<name>``), and each copy between the host and the device a
+counted host sync (``utils.spans``).
 The ``*_stream`` functions move release-scale files (the release SSP
 buffer is 8 * 2^15 * 21846 bytes = 5.33 GiB) in row chunks, so the extra
 host memory is one chunk.  ``crs_local_section_rows`` and
@@ -28,11 +31,14 @@ from ..models import snark as tsnark
 from ..models import ssp as tssp
 from ..parallel import mesh as pmesh
 from ..parallel import multihost
+from . import spans
 from .params import Params
+from .spans import span
 
 
 def _rows92(rows, params: Params) -> np.ndarray:
     """uint8 [..., 88] rows -> [..., 92] numpy (stored format)."""
+    spans.sync("serial._rows92", rows.device)
     r = rows.cpu().numpy().astype(np.uint8)
     pad = params.ct_bytes - r.shape[-1]
     return np.pad(r, [(0, 0)] * (r.ndim - 1) + [(0, pad)]) if pad else r
@@ -45,6 +51,7 @@ def _expect_len(buf, expect: int, what: str) -> None:
 
 def _rows88(arr: np.ndarray, device) -> torch.Tensor:
     """Stored [..., 92] rows -> uint8 digit tensor [..., 88] on the device."""
+    spans.sync("serial._rows88", device)
     return torch.tensor(np.ascontiguousarray(arr[..., :88]), device=device)
 
 
@@ -54,20 +61,22 @@ def _rows88(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def crs_to_bytes(crs: tsnark.CRS, params: Params) -> bytes:
-    parts = [bytes(crs.seed)]
-    for rows in (crs.b_s, crs.b_as, crs.b_t[None], crs.b_v):
-        parts.append(_rows92(rows, params).tobytes())
-    return b"".join(parts)
+    with span("lwe.serial.crs_to_bytes"):
+        parts = [bytes(crs.seed)]
+        for rows in (crs.b_s, crs.b_as, crs.b_t[None], crs.b_v):
+            parts.append(_rows92(rows, params).tobytes())
+        return b"".join(parts)
 
 
 def crs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.CRS:
     d, cb = params.d, params.ct_bytes
     _expect_len(buf, 40 + cb * params.crs_num_cts, "CRS")
-    arr = np.frombuffer(buf, dtype=np.uint8, offset=40).reshape(-1, cb)
-    return tsnark.CRS(
-        seed=bytes(buf[:40]), b_s=_rows88(arr[:d], device),
-        b_as=_rows88(arr[d : 2 * d], device), b_t=_rows88(arr[2 * d], device),
-        b_v=_rows88(arr[2 * d + 1 :], device))
+    with span("lwe.serial.crs_from_bytes"):
+        arr = np.frombuffer(buf, dtype=np.uint8, offset=40).reshape(-1, cb)
+        return tsnark.CRS(
+            seed=bytes(buf[:40]), b_s=_rows88(arr[:d], device),
+            b_as=_rows88(arr[d : 2 * d], device), b_t=_rows88(arr[2 * d], device),
+            b_v=_rows88(arr[2 * d + 1 :], device))
 
 
 # --------------------------------------------------------------------------
@@ -76,8 +85,10 @@ def crs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.CRS:
 
 
 def vrs_to_bytes(vrs: tsnark.VRS, params: Params) -> bytes:
-    scalars = b"".join(int(x).to_bytes(8, "little") for x in (vrs.alpha, vrs.beta, vrs.s))
-    return scalars + _rows92(vrs.sk, params).tobytes()
+    with span("lwe.serial.vrs_to_bytes"):
+        spans.sync("serial.vrs_to_bytes", vrs.alpha.device, 3)  # int() of each scalar
+        scalars = b"".join(int(x).to_bytes(8, "little") for x in (vrs.alpha, vrs.beta, vrs.s))
+        return scalars + _rows92(vrs.sk, params).tobytes()
 
 
 def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
@@ -86,9 +97,11 @@ def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
     words = [int.from_bytes(buf[8 * i : 8 * i + 8], "little") for i in range(3)]
     if max(words) >= params.p:
         raise ValueError("VRS scalars must be reduced mod p")
-    alpha, beta, s = (torch.tensor(w, dtype=torch.uint32, device=device) for w in words)
-    sk = np.frombuffer(buf, dtype=np.uint8, offset=24).reshape(n, cb)
-    return tsnark.VRS(alpha=alpha, beta=beta, s=s, sk=_rows88(sk, device))
+    with span("lwe.serial.vrs_from_bytes"):
+        spans.sync("serial.vrs_from_bytes", device, 3)  # each scalar's copy to the device
+        alpha, beta, s = (torch.tensor(w, dtype=torch.uint32, device=device) for w in words)
+        sk = np.frombuffer(buf, dtype=np.uint8, offset=24).reshape(n, cb)
+        return tsnark.VRS(alpha=alpha, beta=beta, s=s, sk=_rows88(sk, device))
 
 
 # --------------------------------------------------------------------------
@@ -97,14 +110,16 @@ def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
 
 
 def proof_to_bytes(pi: tsnark.Proof, params: Params) -> bytes:
-    return _rows92(pi.stack(), params).tobytes()
+    with span("lwe.serial.proof_to_bytes"):
+        return _rows92(pi.stack(), params).tobytes()
 
 
 def proof_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.Proof:
     n, cb = params.n, params.ct_bytes
     _expect_len(buf, 5 * (n + 1) * cb, "proof")
-    cts = _rows88(np.frombuffer(buf, dtype=np.uint8).reshape(5, n + 1, cb), device)
-    return tsnark.Proof(h=cts[0], hat_h=cts[1], hat_v=cts[2], v_w=cts[3], b_w=cts[4])
+    with span("lwe.serial.proof_from_bytes"):
+        cts = _rows88(np.frombuffer(buf, dtype=np.uint8).reshape(5, n + 1, cb), device)
+        return tsnark.Proof(h=cts[0], hat_h=cts[1], hat_v=cts[2], v_w=cts[3], b_w=cts[4])
 
 
 # --------------------------------------------------------------------------
@@ -120,9 +135,11 @@ def _check_whole(ssp: tssp.SSP, params: Params) -> None:
 def ssp_to_buffer(ssp: tssp.SSP, params: Params) -> bytes:
     """t then v_0..v_{m-1}, each d uint64-LE coefficients (< p)."""
     _check_whole(ssp, params)
-    t = ssp.t.cpu().numpy().astype("<u8")
-    v = ssp.v.cpu().numpy().astype("<u8")
-    return t.tobytes() + v.tobytes()
+    with span("lwe.serial.ssp_to_buffer"):
+        spans.sync("serial.ssp_to_buffer", ssp.t.device, 2)  # t's and v's copies to the host
+        t = ssp.t.cpu().numpy().astype("<u8")
+        v = ssp.v.cpu().numpy().astype("<u8")
+        return t.tobytes() + v.tobytes()
 
 
 def _reduced_words(words: np.ndarray, params: Params) -> np.ndarray:
@@ -136,9 +153,11 @@ def _reduced_words(words: np.ndarray, params: Params) -> np.ndarray:
 def ssp_from_buffer(buf: bytes, params: Params, device="cuda") -> tssp.SSP:
     d, m = params.d, params.m
     _expect_len(buf, 8 * d * (m + 1), "SSP buffer")
-    words = _reduced_words(np.frombuffer(buf, dtype="<u8").reshape(m + 1, d), params)
-    return tssp.SSP(t=torch.tensor(words[0], device=device),
-                    v=torch.tensor(words[1:], device=device))
+    with span("lwe.serial.ssp_from_buffer"):
+        words = _reduced_words(np.frombuffer(buf, dtype="<u8").reshape(m + 1, d), params)
+        spans.sync("serial.ssp_from_buffer", device, 2)  # t's and v's copies to the device
+        return tssp.SSP(t=torch.tensor(words[0], device=device),
+                        v=torch.tensor(words[1:], device=device))
 
 
 # --------------------------------------------------------------------------

@@ -812,3 +812,69 @@ def test_k11_decrypt(cuda, k, n):
     with pytest.raises(ValueError, match="aligned"):  # rows are staged a word a load
         verify.decrypt(shifted, sk.to(cuda))
 
+
+
+@pytest.mark.gpu
+def test_host_syncs_are_the_synchronizing_calls_torch_warns_of(cuda):
+    """A request of each benchmark cell at release, warm, under the recorder
+    and ``set_sync_debug_mode("warn")``: the port's host-sync counter equals
+    the synchronizing calls torch warns of from the port's code (every call
+    a request makes is inside a span), and the spans' launches add up to the
+    ``LAUNCHES`` counters' growth.  (Switching the mode on warns once
+    itself, from torch's code.)"""
+    import warnings
+
+    from c_lwe_snarks_tpu_torch.ops import digits, verify
+    from c_lwe_snarks_tpu_torch.utils import spans
+    from c_lwe_snarks_tpu_torch.utils.params import release
+
+    P = release()
+    port = pathlib.Path(tsnark.__file__).parents[1]
+    crs_key, ent_key = sampling.PRGKey(SEED, cuda), sampling.PRGKey(bytes(range(40, 80)), cuda)
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    state = {}
+
+    def setup():
+        state["wits"], state["ssp"] = tssp.random_ssp(ent_key, 0, P)
+        state["crs"], state["vrs"] = tsnark.setup(crs_key, ent_key, off_setup, state["ssp"], P)
+        serial.crs_to_bytes(state["crs"], P)
+        serial.vrs_to_bytes(state["vrs"], P)
+
+    def prove():
+        pi = tsnark.prover(crs_key, ent_key, off_setup + tsnark.setup_entropy_bytes(P),
+                           state["crs"], state["ssp"], state["wits"], P)
+        state["blob"] = serial.proof_to_bytes(pi, P)
+
+    def verify_():
+        proof = serial.proof_from_bytes(state["blob"], P, cuda)
+        state["ok"] = tsnark.verifier(state["vrs"], state["ssp"], proof, P)
+
+    def launched():
+        return sum(sum(c.values()) for c in (aes.LAUNCHES, eval_fused.LAUNCHES, ntt.LAUNCHES,
+                                            modp.LAUNCHES, digits.LAUNCHES, verify.LAUNCHES))
+
+    for request in (setup, prove, verify_):  # warm: builds, one-time tables
+        request()
+    found = {}
+    for name, request in (("setup", setup), ("prove", prove), ("verify", verify_)):
+        spans.reset()
+        torch.cuda.synchronize()
+        before = launched()
+        with warnings.catch_warnings(record=True) as caught, spans.recording():
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                request()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        top = [r for r in spans.records() if r.parent < 0]
+        warned = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+                  if "synchroniz" in str(w.message) and f"{port}/" in w.filename]
+        found[name] = (sum(r.syncs for r in top), len(warned), spans.sync_sites(), warned)
+        assert sum(r.launches for r in top) == launched() - before > 0, name
+        if name == "prove":  # the proof's bytes wait for its evaluation sweep (K3)
+            assert [r.waited > 0 for r in top if r.name == "lwe.serial.proof_to_bytes"] == [True]
+    for name, (counted, warned, sites, where) in found.items():
+        print(f"{name}: {counted} counted {sites}, {warned} warned at {where}")
+    assert bool(state["ok"])
+    assert all(counted == warned for counted, warned, _, _ in found.values())
