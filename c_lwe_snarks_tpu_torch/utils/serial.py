@@ -10,11 +10,21 @@
   readers narrow them to the SSP's uint32 after checking each is < p, and
   the writers widen them back, so the bytes are the reference's.
 
-Stored rows are the 88 live digits zero-padded to 92 bytes.  The readers
-put their tensors on the card unless the caller names another device.
-Each reader and writer of a whole artifact is a span
-(``lwe.serial.<name>``), and each copy between the host and the device a
-counted host sync (``utils.spans``).
+Stored rows are the 88 live digits zero-padded to 92 bytes.  The padding
+is made and taken off on the device that holds the digits: a writer lays
+its rows into one zeroed [rows, 92] table there (the VRS's scalars as
+words in front of it), and the table crosses to the host in one copy into
+a host buffer that is page-locked where the device is a card; a reader
+copies the blob once into such a buffer, sends the whole table to the
+device in one non-blocking copy and strips it there into one contiguous
+[..., 88] tensor, whose slices are the artifact's fields.  So each whole
+artifact makes one staged copy (``spans.staged``) and at most one host
+sync: a writer's copy to the host (``spans.sync``), none in a reader.  The
+host buffers come from torch's caching host allocator for each call, which
+does not hand a pinned block out again while a copy from it may still be
+in flight.  The readers put their tensors on the card unless the caller
+names another device.  Each reader and writer of a whole artifact is a
+span (``lwe.serial.<name>``).
 The ``*_stream`` functions move release-scale files (the release SSP
 buffer is 8 * 2^15 * 21846 bytes = 5.33 GiB) in row chunks, so the extra
 host memory is one chunk.  ``crs_local_section_rows`` and
@@ -36,12 +46,37 @@ from .params import Params
 from .spans import span
 
 
-def _rows92(rows, params: Params) -> np.ndarray:
-    """uint8 [..., 88] rows -> [..., 92] numpy (stored format)."""
-    spans.sync("serial._rows92", rows.device)
-    r = rows.cpu().numpy().astype(np.uint8)
-    pad = params.ct_bytes - r.shape[-1]
-    return np.pad(r, [(0, 0)] * (r.ndim - 1) + [(0, pad)]) if pad else r
+def _host_buffer(nbytes: int, device) -> tuple[torch.Tensor, bool]:
+    """(uint8 [nbytes] host buffer, pinned): page-locked where ``device`` is
+    a card."""
+    pinned = torch.device(device).type == "cuda"
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned), pinned
+
+
+def _stored(sections, params: Params, site: str, *, head: bytes = b"",
+            words=()) -> torch.Tensor:
+    """``head`` || ``words`` as 8-byte LE words || the uint8 [rows, <= 88]
+    digit rows of ``sections`` as stored 92-byte rows: a uint8 host tensor.
+
+    ``words`` are uint32 scalar tensors on the rows' device.  The words and
+    the padded rows are laid out on that device, then cross to the host in
+    one blocking copy behind ``head``, which the host writes itself."""
+    device, cb = sections[0].device, params.ct_bytes
+    nrows = sum(r.shape[0] for r in sections)
+    dev = torch.zeros(8 * len(words) + nrows * cb, dtype=torch.uint8, device=device)
+    low = dev[: 8 * len(words)].view(torch.uint32)[0::2]  # an 8-byte word's low half
+    for i, w in enumerate(words):
+        low[i] = w
+    table, lo = dev[8 * len(words) :].view(nrows, cb), 0
+    for r in sections:
+        table[lo : lo + r.shape[0], : r.shape[-1]] = r
+        lo += r.shape[0]
+    host, pinned = _host_buffer(len(head) + dev.numel(), device)
+    host.numpy()[: len(head)] = np.frombuffer(head, dtype=np.uint8)
+    spans.sync(site, device)
+    host[len(head) :].copy_(dev)
+    spans.staged(site, host, pinned)
+    return host
 
 
 def _expect_len(buf, expect: int, what: str) -> None:
@@ -49,10 +84,19 @@ def _expect_len(buf, expect: int, what: str) -> None:
         raise ValueError(f"{what}: {len(buf)} bytes, expected {expect}")
 
 
-def _rows88(arr: np.ndarray, device) -> torch.Tensor:
-    """Stored [..., 92] rows -> uint8 digit tensor [..., 88] on the device."""
-    spans.sync("serial._rows88", device)
-    return torch.tensor(np.ascontiguousarray(arr[..., :88]), device=device)
+def _staged_in(buf, offset: int, rows: tuple, params: Params, device, site: str,
+               *, head: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(uint8 [head] bytes, uint8 digit rows [*rows, 88]) on ``device`` of
+    ``buf`` from ``offset`` on: ``head`` bytes, then stored 92-byte rows.
+
+    One host copy into a host buffer, one non-blocking copy of it to the
+    device, and the strip there into one contiguous tensor."""
+    host, pinned = _host_buffer(len(buf) - offset, device)
+    host.numpy()[:] = np.frombuffer(buf, dtype=np.uint8, offset=offset)
+    dev = host.to(device, non_blocking=True)
+    spans.staged(site, host, pinned)
+    table = dev[head:].view(*rows, params.ct_bytes)
+    return dev[:head], table[..., :88].contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -62,21 +106,18 @@ def _rows88(arr: np.ndarray, device) -> torch.Tensor:
 
 def crs_to_bytes(crs: tsnark.CRS, params: Params) -> bytes:
     with span("lwe.serial.crs_to_bytes"):
-        parts = [bytes(crs.seed)]
-        for rows in (crs.b_s, crs.b_as, crs.b_t[None], crs.b_v):
-            parts.append(_rows92(rows, params).tobytes())
-        return b"".join(parts)
+        return _stored((crs.b_s, crs.b_as, crs.b_t[None], crs.b_v), params,
+                       "serial.crs_to_bytes", head=bytes(crs.seed)).numpy().tobytes()
 
 
 def crs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.CRS:
     d, cb = params.d, params.ct_bytes
     _expect_len(buf, 40 + cb * params.crs_num_cts, "CRS")
     with span("lwe.serial.crs_from_bytes"):
-        arr = np.frombuffer(buf, dtype=np.uint8, offset=40).reshape(-1, cb)
-        return tsnark.CRS(
-            seed=bytes(buf[:40]), b_s=_rows88(arr[:d], device),
-            b_as=_rows88(arr[d : 2 * d], device), b_t=_rows88(arr[2 * d], device),
-            b_v=_rows88(arr[2 * d + 1 :], device))
+        _, rows = _staged_in(buf, 40, (params.crs_num_cts,), params, device,
+                             "serial.crs_from_bytes")
+        return tsnark.CRS(seed=bytes(buf[:40]), b_s=rows[:d], b_as=rows[d : 2 * d],
+                          b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
 
 
 # --------------------------------------------------------------------------
@@ -86,9 +127,8 @@ def crs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.CRS:
 
 def vrs_to_bytes(vrs: tsnark.VRS, params: Params) -> bytes:
     with span("lwe.serial.vrs_to_bytes"):
-        spans.sync("serial.vrs_to_bytes", vrs.alpha.device, 3)  # int() of each scalar
-        scalars = b"".join(int(x).to_bytes(8, "little") for x in (vrs.alpha, vrs.beta, vrs.s))
-        return scalars + _rows92(vrs.sk, params).tobytes()
+        return _stored((vrs.sk,), params, "serial.vrs_to_bytes",
+                       words=(vrs.alpha, vrs.beta, vrs.s)).numpy().tobytes()
 
 
 def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
@@ -98,10 +138,9 @@ def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
     if max(words) >= params.p:
         raise ValueError("VRS scalars must be reduced mod p")
     with span("lwe.serial.vrs_from_bytes"):
-        spans.sync("serial.vrs_from_bytes", device, 3)  # each scalar's copy to the device
-        alpha, beta, s = (torch.tensor(w, dtype=torch.uint32, device=device) for w in words)
-        sk = np.frombuffer(buf, dtype=np.uint8, offset=24).reshape(n, cb)
-        return tsnark.VRS(alpha=alpha, beta=beta, s=s, sk=_rows88(sk, device))
+        head, sk = _staged_in(buf, 0, (n,), params, device, "serial.vrs_from_bytes", head=24)
+        alpha, beta, s = head.view(torch.uint32)[0::2]  # the words' low halves
+        return tsnark.VRS(alpha=alpha, beta=beta, s=s, sk=sk)
 
 
 # --------------------------------------------------------------------------
@@ -111,14 +150,15 @@ def vrs_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.VRS:
 
 def proof_to_bytes(pi: tsnark.Proof, params: Params) -> bytes:
     with span("lwe.serial.proof_to_bytes"):
-        return _rows92(pi.stack(), params).tobytes()
+        return _stored((pi.h, pi.hat_h, pi.hat_v, pi.v_w, pi.b_w), params,
+                       "serial.proof_to_bytes").numpy().tobytes()
 
 
 def proof_from_bytes(buf: bytes, params: Params, device="cuda") -> tsnark.Proof:
     n, cb = params.n, params.ct_bytes
     _expect_len(buf, 5 * (n + 1) * cb, "proof")
     with span("lwe.serial.proof_from_bytes"):
-        cts = _rows88(np.frombuffer(buf, dtype=np.uint8).reshape(5, n + 1, cb), device)
+        _, cts = _staged_in(buf, 0, (5, n + 1), params, device, "serial.proof_from_bytes")
         return tsnark.Proof(h=cts[0], hat_h=cts[1], hat_v=cts[2], v_w=cts[3], b_w=cts[4])
 
 
@@ -201,7 +241,8 @@ def crs_write_stream(
         f.write(bytes(crs.seed))
         for rows in (crs.b_s, crs.b_as, crs.b_t[None], crs.b_v):
             for lo in range(0, rows.shape[0], rows_per_chunk):
-                f.write(_rows92(rows[lo : lo + rows_per_chunk], params).tobytes())
+                f.write(_stored((rows[lo : lo + rows_per_chunk],), params,
+                                "serial.crs_write_stream").numpy().tobytes())
 
 
 def crs_row_table(path: str, params: Params) -> tuple[bytes, np.ndarray]:
@@ -215,6 +256,11 @@ def crs_row_table(path: str, params: Params) -> tuple[bytes, np.ndarray]:
     rows = np.memmap(path, dtype=np.uint8, mode="r", offset=40,
                      shape=(params.crs_num_cts, params.ct_bytes))
     return seed, rows
+
+
+def _section_rows(rows, params: Params) -> np.ndarray:
+    return _stored((rows,), params, "serial.crs_local_section_rows").numpy().reshape(
+        -1, params.ct_bytes)
 
 
 def crs_local_section_rows(
@@ -232,8 +278,8 @@ def crs_local_section_rows(
     out = {}
     for name, rows in (("s", crs.b_s), ("as", crs.b_as), ("v", crs.b_v)):
         lo, hi = multihost.chunk_bounds(rows.shape[0], rank, world)
-        out[name] = (lo, _rows92(rows[lo:hi], params))
-    out["t"] = (0, _rows92(crs.b_t[None], params))
+        out[name] = (lo, _section_rows(rows[lo:hi], params))
+    out["t"] = (0, _section_rows(crs.b_t[None], params))
     return out
 
 

@@ -878,3 +878,101 @@ def test_host_syncs_are_the_synchronizing_calls_torch_warns_of(cuda):
         print(f"{name}: {counted} counted {sites}, {warned} warned at {where}")
     assert bool(state["ok"])
     assert all(counted == warned for counted, warned, _, _ in found.values())
+
+
+@pytest.fixture(scope="module")
+def release_circuit():
+    """A release circuit set up on the card: (P, ssp, crs, vrs, prove)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from c_lwe_snarks_tpu_torch.utils.params import release
+
+    P, dev = release(), torch.device("cuda")
+    crs_key, ent_key = sampling.PRGKey(SEED, dev), sampling.PRGKey(bytes(range(40, 80)), dev)
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    wits, ssp = tssp.random_ssp(ent_key, 0, P)
+    crs, vrs = tsnark.setup(crs_key, ent_key, off_setup, ssp, P)
+
+    def prove():
+        return tsnark.prover(crs_key, ent_key, off_setup + tsnark.setup_entropy_bytes(P),
+                             crs, ssp, wits, P)
+
+    return P, ssp, crs, vrs, prove
+
+
+def _fields(obj) -> dict:
+    return {k: v for k, v in vars(obj).items() if isinstance(v, torch.Tensor)}
+
+
+@pytest.mark.gpu
+def test_staged_artifacts_are_the_cpu_paths_bytes(release_circuit):
+    """At release, each writer on the card gives the bytes the same writer
+    gives on the CPU from the same digits; each reader on the card gives the
+    CPU reader's tensors, and they write back the same bytes."""
+    P, _, crs, vrs, prove = release_circuit
+    arts = {"crs": crs, "vrs": vrs, "proof": prove()}
+    writers = {"crs": serial.crs_to_bytes, "vrs": serial.vrs_to_bytes,
+               "proof": serial.proof_to_bytes}
+    readers = {"crs": serial.crs_from_bytes, "vrs": serial.vrs_from_bytes,
+               "proof": serial.proof_from_bytes}
+    for name, art in arts.items():
+        blob = writers[name](art, P)
+        on_cpu = type(art)(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                              for k, v in vars(art).items()})
+        assert blob == writers[name](on_cpu, P), name
+        got, want = readers[name](blob, P, "cuda"), readers[name](blob, P, "cpu")
+        for k, v in _fields(want).items():
+            g = _fields(got)[k]
+            assert g.device.type == "cuda" and g.dtype == v.dtype, (name, k)
+            assert torch.equal(g.cpu(), v), (name, k)
+        assert writers[name](got, P) == blob, name
+
+
+@pytest.mark.gpu
+def test_proofs_read_back_to_back_keep_their_bytes(release_circuit):
+    """Eight reads of two different proofs with no sync between them: each
+    host buffer is freed while its copy to the card may still run, and no
+    later read overwrites it.  The verdicts and every byte are each proof's."""
+    P, ssp, _, vrs, prove = release_circuit
+    honest = serial.proof_to_bytes(prove(), P)
+    bad = bytearray(honest)
+    bad[P.n * P.ct_bytes] ^= 1  # h's b row
+    blobs = [honest, bytes(bad)] * 4
+    torch.cuda.synchronize()
+    proofs = [serial.proof_from_bytes(b, P, "cuda") for b in blobs]
+    oks = [tsnark.verifier(vrs, ssp, pi, P) for pi in proofs]
+    assert [bool(ok) for ok in oks] == [True, False] * 4
+    for blob, pi in zip(blobs, proofs):
+        assert torch.equal(pi.stack().cpu(), serial.proof_from_bytes(blob, P, "cpu").stack())
+
+
+@pytest.mark.gpu
+def test_steady_state_stages_one_copy_an_artifact_and_pins_nothing_new(release_circuit):
+    """Warm, three requests of each kind: one staged copy an artifact and no
+    new pinned buffer, by the port's counter and, where torch reports it,
+    by the caching host allocator's own count."""
+    from c_lwe_snarks_tpu_torch.utils import spans
+
+    P, ssp, crs, vrs, prove = release_circuit
+    pi = prove()
+    blob = serial.proof_to_bytes(pi, P)
+
+    def requests():
+        serial.crs_to_bytes(crs, P)
+        serial.vrs_to_bytes(vrs, P)
+        serial.proof_to_bytes(pi, P)
+        assert bool(tsnark.verifier(vrs, ssp, serial.proof_from_bytes(blob, P, "cuda"), P))
+
+    requests()  # warm: the first pinned buffers
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    allocs = stats().get("num_host_alloc") if stats else None
+    spans.reset()
+    with spans.recording():
+        for _ in range(3):
+            requests()
+    sites = spans.staged_sites()
+    spans.reset()
+    names = ("crs_to_bytes", "vrs_to_bytes", "proof_to_bytes", "proof_from_bytes")
+    assert sites == {f"serial.{f}": {"copies": 3, "pinned_new": 0} for f in names}
+    if allocs is not None:
+        assert stats().get("num_host_alloc") == allocs

@@ -266,3 +266,94 @@ def test_cli_probe_and_save_dir(tmp_path):
     ssp = tserial.ssp_read_stream(str(tmp_path / "ssp.bin"), Pc, "cpu")
     assert bool(tsnark.verifier(vrs, ssp, pi, Pc))
     assert all(_flags(tobs.probe_crs_range(crs, vrs, Pc, count=4)).values())
+
+
+# --------------------------------------------------------------------------
+# staged copies: the 92-byte rows made and taken off on the digits' device
+# --------------------------------------------------------------------------
+
+WRITERS = {"crs": tserial.crs_to_bytes, "vrs": tserial.vrs_to_bytes,
+           "proof": tserial.proof_to_bytes}
+READERS = {"crs": tserial.crs_from_bytes, "vrs": tserial.vrs_from_bytes,
+           "proof": tserial.proof_from_bytes}
+PROOF_FIELDS = ("h", "hat_h", "hat_v", "v_w", "b_w")
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """The same values as a view whose entries lie two apart."""
+    wide = torch.full((*t.shape, 2), 0xA5, dtype=t.dtype)
+    wide[..., 0] = t
+    return wide[..., 0]
+
+
+def test_writers_take_non_contiguous_sections(jax_blobs, port_state):
+    crs, vrs, pi = port_state["crs"], port_state["vrs"], port_state["proof"]
+    crs_v = tsnark.CRS(seed=crs.seed, **{k: _strided(getattr(crs, k))
+                                         for k in ("b_s", "b_as", "b_t", "b_v")})
+    vrs_v = tsnark.VRS(alpha=vrs.alpha, beta=vrs.beta, s=vrs.s, sk=_strided(vrs.sk))
+    pi_v = tsnark.Proof(**{k: _strided(getattr(pi, k)) for k in PROOF_FIELDS})
+    assert not (crs_v.b_s.is_contiguous() or crs_v.b_t.is_contiguous() or pi_v.h.is_contiguous())
+    assert tserial.crs_to_bytes(crs_v, P) == jax_blobs["crs"]
+    assert tserial.vrs_to_bytes(vrs_v, P) == jax_blobs["vrs"]
+    assert tserial.proof_to_bytes(pi_v, P) == jax_blobs["proof"]
+
+
+def test_readers_strip_into_one_tensor(port_state):
+    """A reader's fields are contiguous slices of one [..., 88] tensor, in
+    the stored order."""
+    pi, crs = port_state["proof"], port_state["crs"]
+    fields = [getattr(pi, k) for k in PROOF_FIELDS]
+    for i, c in enumerate(fields):
+        assert c.is_contiguous() and c.shape == (P.n + 1, 88)
+        assert c.data_ptr() == fields[0].data_ptr() + i * (P.n + 1) * 88
+    starts = {"b_s": 0, "b_as": P.d, "b_t": 2 * P.d, "b_v": 2 * P.d + 1}
+    for k, row in starts.items():
+        assert getattr(crs, k).is_contiguous()
+        assert getattr(crs, k).data_ptr() == crs.b_s.data_ptr() + 88 * row
+
+
+@pytest.mark.parametrize("word", [0, 1, (1 << 31) + 7, P.p - 1])
+def test_vrs_scalars_as_words(port_state, word):
+    """The scalars go out as 8-byte LE words from the device and come back
+    as uint32 scalars, at the top of their range too."""
+    vrs = port_state["vrs"]
+    w = torch.tensor(word, dtype=torch.uint32)
+    blob = tserial.vrs_to_bytes(tsnark.VRS(alpha=w, beta=vrs.beta, s=w.clone(), sk=vrs.sk), P)
+    assert blob[:8] == blob[16:24] == word.to_bytes(8, "little")
+    assert blob[8:16] == int(vrs.beta).to_bytes(8, "little")
+    back = tserial.vrs_from_bytes(blob, P, "cpu")
+    for x in (back.alpha, back.beta, back.s):
+        assert x.dtype == torch.uint32 and x.shape == ()
+    assert (int(back.alpha), int(back.s)) == (word, word)
+    assert tserial.vrs_to_bytes(back, P) == blob
+
+
+@pytest.mark.parametrize("artifact", ["crs", "vrs", "proof"])
+@pytest.mark.parametrize("change", ["longer", "empty"])
+def test_readers_refuse_a_longer_or_empty_blob(jax_blobs, artifact, change):
+    blob = jax_blobs[artifact] + b"\0" if change == "longer" else b""
+    with pytest.raises(ValueError, match="bytes, expected"):
+        READERS[artifact](blob, P, "cpu")
+
+
+def test_each_artifact_stages_one_copy(jax_blobs, port_state):
+    """Traced, each whole artifact crosses in one staged copy through a
+    host buffer (not pinned on the CPU); a writer syncs once, a reader
+    never."""
+    from c_lwe_snarks_tpu_torch.utils import spans
+
+    names = [f"{a}_to_bytes" for a in WRITERS] + [f"{a}_from_bytes" for a in READERS]
+    spans.reset()
+    try:
+        with spans.recording():
+            for a in WRITERS:
+                WRITERS[a](port_state[a], P)
+            for a in READERS:
+                READERS[a](jax_blobs[a], P, "cpu")
+        assert spans.staged_sites() == {f"serial.{f}": {"copies": 1, "pinned_new": 0}
+                                        for f in names}
+        assert spans.sync_sites() == {f"serial.{a}_to_bytes": 1 for a in WRITERS}
+        s = spans.summary()
+        assert all(s[f"lwe.serial.{f}"]["staged"] == 1 for f in names)
+    finally:
+        spans.reset()

@@ -80,7 +80,7 @@ def test_off_records_and_counts_nothing(keys, circuit):
     serial.vrs_to_bytes(vrs, P)
     assert snark.verifier(vrs, inst, serial.proof_from_bytes(blob, P, DEV), P)
     _setup(keys)
-    assert spans.records() == [] and spans.sync_sites() == {}
+    assert spans.records() == [] and spans.sync_sites() == {} and spans.staged_sites() == {}
 
 
 def test_profiler_records_the_prover_and_its_stages(keys, circuit):
@@ -131,9 +131,9 @@ def test_bytes_identical_with_tracing_on_and_off(keys, circuit, artifact):
 
 
 @pytest.mark.parametrize("stage,syncs,sites", [
-    ("prove", 2, {"ntt.poly_degree_and_lead": 1, "serial._rows92": 1}),
-    ("setup", 8, {"serial._rows92": 5, "serial.vrs_to_bytes": 3}),
-    ("verify", 1, {"serial._rows88": 1}),
+    ("prove", 2, {"ntt.poly_degree_and_lead": 1, "serial.proof_to_bytes": 1}),
+    ("setup", 2, {"serial.crs_to_bytes": 1, "serial.vrs_to_bytes": 1}),
+    ("verify", 0, {}),
 ])
 def test_host_syncs_of_a_request(keys, circuit, stage, syncs, sites):
     with spans.recording():
@@ -223,7 +223,29 @@ def test_profile_writes_the_spans_beside_the_trace(keys, circuit, tmp_path):
     assert set(got) == {"lwe.prover", *PROVER_CHILDREN, "lwe.serial.proof_to_bytes"}
     assert got["lwe.prover"]["calls"] == 1 and got["lwe.prover"]["host_syncs"] == 1
     assert got["lwe.serial.proof_to_bytes"]["host_syncs"] == 1
+    assert got["lwe.serial.proof_to_bytes"]["staged"] == 1
+    assert got["lwe.prover"]["staged"] == 0
     assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+def test_staged_counts_copies_and_new_pinned_buffers_by_site():
+    """A pinned buffer is new at an address no staged copy used before,
+    the address kept with tracing off too; counts only with tracing on."""
+    a, b = torch.empty(8, dtype=torch.uint8), torch.empty(8, dtype=torch.uint8)
+    spans.staged("x", a, True)
+    assert spans.staged_sites() == {}
+    with spans.recording(), spans.span("lwe.x"):
+        spans.staged("x", a, True)
+        spans.staged("x", b, True)
+        spans.staged("x", b, True)
+        spans.staged("y", b, False)
+    assert spans.staged_sites() == {"x": {"copies": 3, "pinned_new": 1},
+                                    "y": {"copies": 1, "pinned_new": 0}}
+    rec, = spans.records()
+    assert (rec.staged, rec.pinned_new) == (4, 1)
+    assert (spans.summary()["lwe.x"]["staged"], spans.summary()["lwe.x"]["pinned_new"]) == (4, 1)
+    spans.reset()
+    assert spans.staged_sites() == {}
 
 
 def test_reset_refuses_an_open_span():
