@@ -12,11 +12,12 @@ changes.
 
 A run: set-up (import, the kernel library, the cell's state made on the
 device from the seed, a few requests of the cell's own shapes), then a
-closed loop with one client for ``--seconds`` (under ``torch.profiler`` with
-``--trace 1``), then, with the program's state freed, the plain reference
-over a sample of the window's answers drawn from the seed.  The last line
-of standard output is the result; the numbers compared, each beside its
-limit, are the last lines of standard error and the result's last key.
+closed loop with the traffic's ``clients`` (one by default) for
+``--seconds`` (under ``torch.profiler`` with ``--trace 1``), then, with the
+program's state freed, the plain reference over a sample of the window's
+answers drawn from the seed.  The last line of standard output is the
+result; the numbers compared, each beside its limit, are the last lines of
+standard error and the result's last key.
 """
 
 from __future__ import annotations
@@ -181,6 +182,7 @@ class Record:
     latencies_s: list
     spans: Spans
     trace: object = None  # trace.Trace of the traced run
+    traffic: dict = dataclasses.field(default_factory=dict)  # the cell's traffic file
 
 
 class Reservoir:
@@ -210,27 +212,62 @@ class Reservoir:
         return dict(sorted([*self.slots.values(), *self.failed.items()]))
 
 
-def closed_loop(ctx: Context, state, first: int, seconds: float):
-    """One client: request i + 1 goes out when request i has returned, until
-    one returns after ``seconds``.  Returns (the reservoir of answers, None
-    for a request that failed; latencies; failures; the window's seconds)."""
-    kept, lat, failed = Reservoir(ctx), [], 0
-    t0 = time.perf_counter()
-    i = first
-    while True:
-        start = time.perf_counter()
+def one_by_one(ctx: Context, state, indices):
+    """The ``serve`` of an entry that has none: ``request`` on each index in
+    turn, a request that raises answered None."""
+    for i in indices:
         try:
-            with ctx.spans("request"):
-                answer = ctx.cell.entry.request(ctx, state, i)
+            answer = ctx.cell.entry.request(ctx, state, i)
         except Exception as exc:  # noqa: BLE001 - a failed request is counted, the loop goes on
             print(f"request {i} failed: {exc!r}", file=sys.stderr)
-            answer, failed = None, failed + 1
-        end = time.perf_counter()
-        lat.append(end - start)
-        kept.offer(i, answer)
-        i += 1
-        if end - t0 >= seconds:
-            return kept, lat, failed, end - t0
+            answer = None
+        yield i, answer
+
+
+def closed_loop(ctx: Context, state, first: int, seconds: float):
+    """The traffic's ``clients`` (C, 1 by default), each with one request
+    outstanding: requests first .. first + C - 1 are issued at the start,
+    and a client issues its next request (the next index) as soon as its
+    answer comes back.  Every outstanding request is handed to the entry at
+    once, through ``serve(ctx, state, indices)`` where the entry has it
+    (``one_by_one`` where not), which yields (index, answer) as each answer
+    is done; each call runs inside one ``request`` span.  A request's latency
+    runs from its issue to its answer; a request that ``serve`` left
+    unanswered, or that was outstanding when ``serve`` raised, fails then.
+    The window ends when the first answer after ``seconds`` comes back;
+    requests still in flight then are not counted.  Returns (the reservoir
+    of answers, None for a request that failed; latencies; failures; the
+    window's seconds)."""
+    serve = getattr(ctx.cell.entry, "serve", None) or one_by_one
+    kept, lat, failed = Reservoir(ctx), [], 0
+    t0 = time.perf_counter()
+    issued = {i: t0 for i in range(first, first + int(ctx.traffic.get("clients", 1)))}
+    nxt = first + len(issued)
+    while True:
+        batch, issued = issued, {}
+        answers = []
+        with ctx.spans("request"):
+            calls = serve(ctx, state, list(batch))
+            try:
+                for i, answer in calls:
+                    answers.append((i, answer, time.perf_counter()))
+                    if answers[-1][2] - t0 >= seconds:
+                        break
+            except Exception as exc:  # noqa: BLE001 - the outstanding requests fail, the loop goes on
+                print(f"serve {list(batch)} failed: {exc!r}", file=sys.stderr)
+            finally:
+                calls.close()
+            answered = {i for i, _, _ in answers}
+            end = time.perf_counter()
+            answers += [(i, None, end) for i in batch if i not in answered]
+        for i, answer, t in answers:
+            lat.append(t - batch.pop(i))
+            failed += answer is None
+            kept.offer(i, answer)
+            if t - t0 >= seconds:
+                return kept, lat, failed, t - t0
+            issued[nxt] = t
+            nxt += 1
 
 
 def control_answers(ctx: Context, indices, q_bits: int) -> dict:
@@ -298,7 +335,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     dev = ({"platform": "gpu", "kind": torch.cuda.get_device_name(device),
             "count": 1, "memory_peak_bytes": peak} if device.type == "cuda"
            else {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0})
-    record = Record(cell.cfg, setup_s, window_s, len(lat) - failed, lat, spans)
+    record = Record(cell.cfg, setup_s, window_s, len(lat) - failed, lat, spans,
+                    traffic=cell.traffic)
     if prof is not None:
         record.trace = tracing.Trace.read(prof, spans.names())
         if device.type == "cuda" and not record.trace.device:

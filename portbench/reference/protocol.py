@@ -19,9 +19,11 @@ It takes nothing that the program has made.
   E and M the same sums of a_j, e_j and m_j.  It needs no b row of the CRS.
 * The quotient h = (v^2 - 1) / t: random_ssp's instance is satisfied by
   construction (t = v_0 + sum of the witness's rows - 1), so v = (1 + delta) t
-  + 1 and h = (1 + delta)^2 t + 2 (1 + delta).  The reference takes h in that
-  form and checks h t = v^2 - 1 at eight points it draws, so a quotient that
-  is not exact raises.
+  + 1 and h = (1 + delta)^2 t + 2 (1 + delta).  A statement of
+  ``statement_circuits`` has v_0 + its gated rows = c t + 1 with its own
+  scale c, so v = (c + delta) t + 1 and h = (c + delta)^2 t + 2 (c + delta).
+  The reference takes h in that form and checks h t = v^2 - 1 at eight
+  points it draws, so a quotient that is not exact raises.
 """
 
 from __future__ import annotations
@@ -186,6 +188,7 @@ class Circuit:
     rowsum: torch.Tensor  # int64 [d]: sum of v_i over the witness's bits, i >= 1
     v_at_s: torch.Tensor  # int64 [m]: v_i(s), -1 for a row not derived
     v: torch.Tensor | None = None  # int64 [m, d], kept when asked
+    scale: int = 1  # c in v_0 + rowsum = c t + 1
 
 
 def witness_bits(ent: Stream, P: Params) -> torch.Tensor:
@@ -230,6 +233,59 @@ def circuit(ent: Stream, P: Params, s: int, *, every_row: bool, keep_v: bool = F
     t = gated.clone()
     t[0] = (t[0] - 1) % P.p
     return Circuit(wits=wits, t=t, v0=v0, rowsum=(gated - v0) % P.p, v_at_s=v_at_s, v=v)
+
+
+def statement_circuits(ent: Stream, P: Params, s: int, others: list[torch.Tensor],
+                       pivots: list[int], *, keep_v: bool = False) -> list[Circuit]:
+    """The circuits of W = len(others) + 1 statements of one instance, every
+    row derived and evaluated at s.  Statement 0 is random_ssp's witness, and
+    t stays random_ssp's.  Statement b >= 1 has the witness bits others[b - 1]
+    (uint8 [m]) with the gating bit of every pivot row (rows ``pivots``, none
+    of them gated by statement 0) cleared but its own, pivots[b - 1]'s, set;
+    that row of v is replaced by (1 + b) t + 1 - v_0 - (the other rows
+    statement b gates), so v_0 plus the rows statement b gates is
+    (1 + b) t + 1 (``Circuit.scale``).  The circuits share t, v_0, every
+    v_i(s) and, with ``keep_v``, v."""
+    dev, p, W = ent.device, P.p, len(others) + 1
+    piv = torch.tensor(pivots, dtype=torch.int64, device=dev)
+    bits = torch.stack([witness_bits(ent, P), *others])
+    if bool(bits[0, piv - 1].any()):
+        raise ValueError("statement 0 gates a pivot row")
+    bits[1:, piv - 1] = 0
+    bits[torch.arange(1, W, device=dev), piv - 1] = 1
+    free = torch.cat([torch.zeros(W, 1, dtype=torch.float64, device=dev),
+                      bits[:, : P.m - 1].to(torch.float64)], 1)  # row i's gate, v_0's apart
+    free[:, piv] = 0
+    pw = powers(s, P.d, p, dev)
+    sums = torch.zeros(W, P.d, dtype=torch.int64, device=dev)  # the non-pivot gated rows i >= 1
+    v_at_s = torch.empty(P.m, dtype=torch.int64, device=dev)
+    v = torch.zeros(P.m, P.d, dtype=torch.int64, device=dev) if keep_v else None
+    step = max(1, ROW_CHUNK_BLOCKS // (P.d // 2))
+    v0 = None
+    for lo in range(0, P.m, step):
+        idx = torch.arange(lo, min(P.m, lo + step), device=dev)
+        block = v_rows(ent, P, idx)
+        # 0/1 times words < 2^32, summed over fewer than 2^21 rows: exact in float64
+        sums = (sums + (free[:, idx] @ block.to(torch.float64)).to(torch.int64)) % p
+        v_at_s[idx] = poly_at(block, pw, p)
+        if v0 is None:
+            v0 = block[0].clone()
+        if keep_v:
+            v[idx] = block
+    t = (v0 + sums[0]) % p
+    t[0] = (t[0] - 1) % p
+    out = [Circuit(wits=bits[0], t=t, v0=v0, rowsum=sums[0], v_at_s=v_at_s, v=v)]
+    for b in range(1, W):
+        rowsum = mulmod(t, 1 + b, p)
+        rowsum[0] = (rowsum[0] + 1) % p
+        rowsum = (rowsum - v0) % p
+        row = (rowsum - sums[b]) % p
+        v_at_s[pivots[b - 1]] = poly_at(row, pw, p)
+        if keep_v:
+            v[pivots[b - 1]] = row
+        out.append(Circuit(wits=bits[b], t=t, v0=v0, rowsum=rowsum, v_at_s=v_at_s, v=v,
+                           scale=1 + b))
+    return out
 
 
 @dataclasses.dataclass
@@ -367,8 +423,9 @@ def prover_coeffs(ent: Stream, P: Params, circ: Circuit, offset: int) -> torch.T
     delta = u64_mod_p(bytes(ent.bytes(offset, 8).cpu().numpy()), p)
     w = (mulmod(circ.t, delta, p) + circ.rowsum) % p
     v = (circ.v0 + w) % p
-    h = mulmod(circ.t, (1 + delta) ** 2 % p, p)
-    h[0] = (h[0] + 2 * (1 + delta)) % p
+    c = (circ.scale + delta) % p  # v = c t + 1
+    h = mulmod(circ.t, c * c % p, p)
+    h[0] = (h[0] + 2 * c) % p
     for r in _points(ent.seed + offset.to_bytes(8, "little"), 8, p):
         pw = powers(r, d, p, dev)
         h_r, t_r, v_r = (int(poly_at(x, pw, p)) for x in (h, circ.t, v))
@@ -387,12 +444,14 @@ SMUDGE_TARGETS = (1, 3, 2, 0, 0)
 PROOF_ORDER = (1, 3, 2, 0, 4)
 
 
-def proofs(crs: Stream, ent: Stream, P: Params, circ: Circuit, key: VRS,
+def proofs(crs: Stream, ent: Stream, P: Params, circ: Circuit | list[Circuit], key: VRS,
            offsets: list[int]) -> list[bytes]:
     """The proof bytes (h, hat_h, hat_v, v_w, b_w; each n + 1 stored rows) of
-    the circuit for each prover entropy offset, from one sweep."""
-    coeffs = torch.cat([prover_coeffs(ent, P, circ, off) for off in offsets])
-    msgs = messages(circ, key, P)
+    the circuit, or of one circuit a proof (statements of one instance, which
+    share t and every v_i(s)), for each prover entropy offset, from one sweep."""
+    circs = circ if isinstance(circ, list) else [circ] * len(offsets)
+    coeffs = torch.cat([prover_coeffs(ent, P, c, off) for c, off in zip(circs, offsets)])
+    msgs = messages(circs[0], key, P)
     if bool(((coeffs != 0) & (msgs < 0)).any()):
         raise ValueError("a proof needs v_i(s) of a row the circuit did not derive")
     A, _ = sweep(crs, P, coeffs=coeffs)

@@ -1,4 +1,4 @@
-"""Whole runs of the three entries at tiny size on the CPU, judged by the
+"""Whole runs of the four entries at tiny size on the CPU, judged by the
 plain reference: sound runs come out correct, traced or not; the control
 (the reference in the program's place at q = 2^640) and each fault these
 cells can have, planted in the program underneath a run, come out not
@@ -79,6 +79,8 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
     from c_lwe_snarks_tpu_torch.models import lwe, snark
     from c_lwe_snarks_tpu_torch.utils import serial
 
+    if kind == "prove_batch" and fault in ("altered", "stale", "half"):
+        kind = "prove"  # the batch entry's proofs come from the same prover, one a request
     if (kind, fault) == ("prove", "altered"):
         f = serial.proof_to_bytes
         monkeypatch.setattr(serial, "proof_to_bytes", lambda pi, P: _flip(f(pi, P), 4000))
@@ -98,7 +100,7 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
 
         def sometimes(*args, **kwargs):
             calls.append(1)
-            if len(calls) % 5 == 0:
+            if len(calls) % 5 == 4:  # the first request of the window (after 3 warm), and 1 in 5
                 raise RuntimeError("a proof that fails")
             return f(*args, **kwargs)
 
@@ -122,6 +124,34 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
         monkeypatch.setattr(snark, "verifier", lambda *a: ~f(*a))
     elif (kind, fault) == ("verify", "stale"):
         monkeypatch.setattr(snark, "verifier", _stale(snark.verifier))
+    elif (kind, fault) == ("prove_batch", "statement0"):
+        f, first = snark.prover, []
+
+        def statement0(crs_key, ent_key, off, crs, inst, witness, P, **kw):
+            first[:] = first or [witness]  # the warm-up's first request is statement 0's
+            return f(crs_key, ent_key, off, crs, inst, first[0], P, **kw)
+
+        monkeypatch.setattr(snark, "prover", statement0)
+    elif (kind, fault) == ("prove_batch", "rowsum0"):
+        f, first = snark.prover_polys, []
+
+        def rowsum0(ent_key, off, inst, witness, P, **kw):
+            first[:] = first or [witness]  # every row-sum over statement 0's gates
+            return f(ent_key, off, inst, first[0], P, **kw)
+
+        monkeypatch.setattr(snark, "prover_polys", rowsum0)
+    elif (kind, fault) in (("prove_batch", "swapped"), ("prove_batch", "half_batch")):
+
+        def batch(crs_key, ent_key, offsets, crs, inst, witnesses, P):
+            proofs = [snark.prover(crs_key, ent_key, off, crs, inst, w, P)
+                      for off, w in zip(offsets, witnesses)]
+            if fault == "half_batch":
+                return proofs[: len(proofs) // 2]  # the second half of the requests unanswered
+            for k in range(0, len(proofs) - 1, 2):  # each pair of answers swapped
+                proofs[k], proofs[k + 1] = proofs[k + 1], proofs[k]
+            return proofs
+
+        monkeypatch.setattr(snark, "prover_batch", batch, raising=False)
     else:
         raise AssertionError((kind, fault))
 
@@ -129,12 +159,18 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
 @pytest.mark.parametrize("kind,fault", [
     ("prove", "altered"), ("prove", "stale"), ("prove", "half"), ("prove", "fails"),
     ("setup", "altered"), ("setup", "stale"), ("setup", "half"),
-    ("verify", "altered"), ("verify", "stale")])
+    ("verify", "altered"), ("verify", "stale"),
+    ("prove_batch", "altered"), ("prove_batch", "stale"), ("prove_batch", "half"),
+    ("prove_batch", "statement0"), ("prove_batch", "rowsum0"), ("prove_batch", "swapped"),
+    ("prove_batch", "half_batch")])
 def test_planted_fault_is_not_correct(tiny, monkeypatch, kind, fault):
     _plant(monkeypatch, kind, fault)
-    r = run(tiny, kind)
+    # requests a call leaves unanswered fail when the call ends, and the window's first request is
+    # statement 0's, which a fault on the other statements leaves right: a window that outlasts one call
+    long = fault in ("half_batch", "statement0", "rowsum0")
+    r = run(tiny, kind, seconds=5.0 if long else 0.4)
     assert not r["correct"] and failing(r), r["checks"]
-    assert (r["failed"] > 0) == (fault == "fails")
+    assert (r["failed"] > 0) == (fault in ("fails", "half_batch"))
 
 
 def test_new_files_are_found_by_name(tiny, tmp_path):
