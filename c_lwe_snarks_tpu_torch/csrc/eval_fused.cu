@@ -31,6 +31,22 @@
 // 16-byte block, both near their pipe's rate); the MMA phase is a few per
 // cent, for any k.
 //
+// K3's many-lane form (cls_eval_mac_lanes, more than 8 lanes, one sweep for
+// several proofs): a block's sums are its byte columns x its planes, in
+// registers, so more lanes mean fewer columns a block.  A warp keeps one row
+// tile of 16 columns x 80 planes (20 lanes, 40 sums a thread), a block 240
+// columns (16 AES blocks a row: 6.7 % of the cipher's bytes fall outside the
+// columns, against 3.2 % at 496), in tiles of 256 rows so that a thread still
+// encrypts 8 blocks between two barriers (a lane's second 4 rows 128 rows on,
+// word 32 + L of a column); a tile's coefficient words are loaded before its
+// cipher phase and stored behind it, which hides their latency.  Block row y
+// sweeps segment y of a table passed as a kernel parameter: its rows and the
+// window of at most 20 lanes it reads.  So a lane that is zero over a
+// segment's rows costs nothing there (the prover's batch of B: 2B of its 5B
+// lanes over s and over as, B over bt and bv), and plane tiles past a
+// window's lanes are skipped.  The kernel keeps K3's name
+// (lanes::eval_mac_kernel), and both forms run one sweep body.
+//
 // K4 replaces ops/eval_fused.py:_enc_kernel (helpers _sk_band_blocks):
 // <sk, a_i> mod 2^704 for sequential ciphertexts, as the matrix product
 // v_nib[ct, t] = sum_q a[ct, q] * Band_nib[q, t] over a ciphertext's 92n
@@ -88,6 +104,190 @@ constexpr int kMacPlanes = 32;       // coefficient-byte planes of the B tile (4
 constexpr int64_t kMacMaxSegment = 32768;  // rows per segment: 32768 * 255^2 < 2^31
 constexpr int kMacBeforeTable = kMacPlanes * kMacColStride * 4;  // the coefficient bytes
 constexpr int kMacTileBytes = kMacColsPad * kMacColStride * 4;  // behind the table
+// the many-lane form
+constexpr int kWideTiles = 10;       // plane tiles of 8
+constexpr int kWideLanes = 20;       // lanes a segment: 4 planes each
+constexpr int kWideCols = 240;       // byte columns a block owns
+constexpr int kWideColsPad = 256;    // columns of the tile: 16 MMA row tiles of 16
+constexpr int kWideRows = 256;       // rows a tile: 8 AES blocks a thread a tile, as at 496 columns
+constexpr int kWideStride = kWideRows / 4 + 4;  // words a tile column (conflict-free fragments)
+constexpr int kWideBeforeTable = 8 * kWideTiles * kWideStride * 4;
+constexpr int kWideTileBytes = kWideColsPad * kWideStride * 4;
+constexpr int kWideMaxSegments = 128;  // a launch's segment table, a kernel parameter
+static_assert(4 * kWideLanes == 8 * kWideTiles, "a window's planes fill the plane tiles");
+
+// Block row y of a many-lane launch sweeps rows [row_begin[y], row_end[y])
+// with lanes [lane0[y], lane0[y] + lanes[y]).
+struct MacSegments {
+  int32_t row_begin[kWideMaxSegments];
+  int32_t row_end[kWideMaxSegments];
+  int32_t lane0[kWideMaxSegments];
+  int32_t lanes[kWideMaxSegments];
+};
+
+// One block's sweep: rows [r_begin, r_end) of the kw lanes from lane0 over its
+// byte columns, added into out's planes of those lanes.  NT: tiles of 8
+// coefficient-byte planes; MT: MMA row tiles of 16 columns a warp.  WIDE:
+// kw and lane0 are the segment's, and plane tiles past 4 kw planes are skipped.
+template <int NT, int MT, bool WIDE>
+__device__ __forceinline__ void mac_sweep(uint32_t* smem, const uint32_t* __restrict__ tables,
+                                          const RoundKeys& rk, uint32_t nonce_lo,
+                                          uint32_t nonce_hi, uint64_t offset,
+                                          const uint32_t* __restrict__ coeffs, int k, int64_t d,
+                                          int64_t n, int64_t r_begin, int64_t r_end, int lane0,
+                                          int kw, unsigned long long* __restrict__ out) {
+  constexpr int kColsPad = 16 * MT * kMacWarps;
+  constexpr int kCols = kColsPad - 16;  // kColsPad / 16 AES blocks cover them at any skip
+  constexpr int kAesBlocks = kColsPad / 16;
+  constexpr int kPlanes = 8 * NT > kMacPlanes ? 8 * NT : kMacPlanes;
+  constexpr int RT = WIDE ? kWideRows / kMacRows : 1;  // row groups of 128 a tile
+  constexpr int kRows = kMacRows * RT;                 // rows a tile
+  constexpr int kStride = 32 * RT + 4;                 // words a tile column
+  static_assert(kStride == (WIDE ? kWideStride : kMacColStride), "the layout the launcher sizes");
+  uint8_t* window = cf_window(smem, kPlanes * kStride * 4);
+  uint32_t* cfb = smem;                                                  // [plane][words of rows]
+  uint32_t* tile = reinterpret_cast<uint32_t*>(window + kCfAfterTable);  // [column][words of rows]
+  cf_load_table(window, tables);
+  for (int i = threadIdx.x; i < kPlanes * kStride; i += kMacThreads) cfb[i] = 0;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const uint32_t lane_base = cf_lane_base();
+  const uint64_t ctr_ct = 92ull * static_cast<uint64_t>(n);
+  const uint64_t c0 = static_cast<uint64_t>(blockIdx.x) * kCols;
+  const int live = WIDE ? (4 * kw + 7) / 8 : NT;  // plane tiles that hold a lane's bytes
+  const uint32_t* cw_lanes = coeffs + static_cast<int64_t>(lane0) * d;
+  constexpr int kPre = WIDE ? kRows * kWideLanes / kMacThreads : 1;  // words a thread a tile
+  static_assert(!WIDE || kRows * kWideLanes % kMacThreads == 0, "whole words a thread");
+  const int pre_row = threadIdx.x % kRows;
+
+  int32_t acc[MT][NT][4];  // [row tile of 16 columns][plane tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += kRows) {
+    const int rows = static_cast<int>(min64(kRows, r_end - r0));
+    __syncthreads();  // table loaded / previous tile consumed
+    // coefficient bytes, [plane c * kw + kk][permuted row].  The many-lane form
+    // loads its words (row threadIdx.x % 256, lanes threadIdx.x / 256 + 2u) here
+    // and stores them behind the cipher phase, whose work hides the loads.
+    uint8_t* cb = reinterpret_cast<uint8_t*>(cfb);
+    uint32_t pre[kPre];
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int u = 0; u < kPre; ++u) {
+        const int kk = threadIdx.x / kRows + u * (kMacThreads / kRows);
+        pre[u] = kk < kw && pre_row < rows ? cw_lanes[kk * d + r0 + pre_row] : 0u;
+      }
+    } else {
+      for (int i = threadIdx.x; i < kRows * kw; i += kMacThreads) {
+        const int rr = i % kRows, kk = i / kRows;
+        const uint32_t cw = rr < rows ? cw_lanes[kk * d + r0 + rr] : 0u;
+        const int pos = (rr & ~15) | ((rr & 3) << 2) | ((rr >> 2) & 3);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          cb[(c * kw + kk) * (4 * kStride) + pos] = static_cast<uint8_t>(cw >> (8 * c));
+      }
+    }
+    // keystream: lane L takes rows 128 h + 16 * (L / 4) + L % 4 + {0, 4, 8, 12},
+    // which are word 32 h + L of every tile column; warps take the AES block
+    // columns.  Rows 128 apart share their byte skip (128 * 92n is a multiple of 16).
+#pragma unroll
+    for (int h = 0; h < RT; ++h) {
+      const int64_t row0 = r0 + 128 * h + 16 * (lane >> 2) + (lane & 3);
+      if (row0 < r_end) {  // else all four rows are past the end (their coefficient bytes are 0)
+        const uint64_t first0 = offset + static_cast<uint64_t>(row0) * ctr_ct + c0;
+        const int skip = static_cast<int>(first0 & 15);
+        for (int b = warp; b < kAesBlocks; b += kMacWarps) {
+          uint64_t ctr[4];
+          uint4 w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ctr[i] = ((first0 + 4ull * i * ctr_ct) >> 4) + b;
+          aes256_ctr_cf<4>(lane_base, rk, nonce_lo, nonce_hi, ctr, w);
+          const uint32_t wi[4][4] = {{w[0].x, w[1].x, w[2].x, w[3].x},
+                                     {w[0].y, w[1].y, w[2].y, w[3].y},
+                                     {w[0].z, w[1].z, w[2].z, w[3].z},
+                                     {w[0].w, w[1].w, w[2].w, w[3].w}};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            // 4 rows x 4 byte columns -> 4 byte columns x 4 rows
+            const uint32_t t0 = __byte_perm(wi[i][0], wi[i][1], 0x5140);
+            const uint32_t t1 = __byte_perm(wi[i][2], wi[i][3], 0x5140);
+            const uint32_t t2 = __byte_perm(wi[i][0], wi[i][1], 0x7362);
+            const uint32_t t3 = __byte_perm(wi[i][2], wi[i][3], 0x7362);
+            const uint32_t o[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                                   __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int col = 16 * b + 4 * i + c - skip;
+              if (static_cast<unsigned>(col) < static_cast<unsigned>(kColsPad))
+                tile[col * kStride + 32 * h + lane] = o[c];
+            }
+          }
+        }
+      }
+    }
+    if constexpr (WIDE) {
+      const int pos = (pre_row & ~15) | ((pre_row & 3) << 2) | ((pre_row >> 2) & 3);
+#pragma unroll
+      for (int u = 0; u < kPre; ++u) {
+        const int kk = threadIdx.x / kRows + u * (kMacThreads / kRows);
+        if (kk >= kw) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          cb[(c * kw + kk) * (4 * kStride) + pos] = static_cast<uint8_t>(pre[u] >> (8 * c));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < kRows / 32; ++kc) {
+      uint32_t bf[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= live) continue;
+        bf[nt][0] = cfb[(8 * nt + g) * kStride + 8 * kc + t4];
+        bf[nt][1] = cfb[(8 * nt + g) * kStride + 8 * kc + 4 + t4];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t* p = tile + (16 * (MT * warp + mt) + g) * kStride + 8 * kc + t4;
+        const uint32_t a[4] = {p[0], p[8 * kStride], p[4], p[8 * kStride + 4]};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (nt < live) mma_u8(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rel = 16 * (MT * warp + mt) + g + (e >> 1) * 8;
+      const uint64_t col = c0 + rel;
+      const uint64_t coord = col / 92, digit = col % 92;
+      // the tile's padding, past the row, or a dead byte
+      if (rel >= kCols || col >= ctr_ct || digit >= 88) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int plane = 8 * nt + 2 * t4 + (e & 1);
+        const int32_t v = acc[mt][nt][e];
+        if (plane >= 4 * kw || v == 0) continue;
+        // plane c * kw + kk of the window is plane c * k + lane0 + kk of out
+        const int oplane = WIDE ? plane / kw * k + lane0 + plane % kw : plane;
+        atomicAdd(&out[(static_cast<uint64_t>(oplane) * n + coord) * 88 + digit],
+                  static_cast<unsigned long long>(v));
+      }
+    }
+}
+static_assert(16 * 2 * kMacWarps == kMacColsPad && kMacColsPad - 16 == kMacCols &&
+                  kMacColsPad / 16 == kMacAesBlocks,
+              "the form of at most 8 lanes: two row tiles a warp");
+static_assert(16 * kMacWarps == kWideColsPad && kWideColsPad - 16 == kWideCols,
+              "the many-lane form: one row tile a warp");
 
 // NT = ceil(4k / 8): column tiles of 8 coefficient-byte planes.
 template <int NT>
@@ -97,111 +297,9 @@ eval_mac_kernel(const uint32_t* __restrict__ tables, const __grid_constant__ Rou
                 const uint32_t* __restrict__ coeffs, int k, int64_t d, int64_t n,
                 int64_t seg_rows, unsigned long long* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t smem[];
-  uint8_t* window = cf_window(smem, kMacBeforeTable);
-  uint32_t* cfb = smem;                                                  // [plane][36 words of rows]
-  uint32_t* tile = reinterpret_cast<uint32_t*>(window + kCfAfterTable);  // [column][36 words of rows]
-  cf_load_table(window, tables);
-  for (int i = threadIdx.x; i < kMacPlanes * kMacColStride; i += kMacThreads) cfb[i] = 0;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
-  const uint32_t lane_base = cf_lane_base();
-  const uint64_t ctr_ct = 92ull * static_cast<uint64_t>(n);
-  const uint64_t c0 = static_cast<uint64_t>(blockIdx.x) * kMacCols;
   const int64_t r_begin = static_cast<int64_t>(blockIdx.y) * seg_rows;
-  const int64_t r_end = min64(d, r_begin + seg_rows);
-
-  int32_t acc[2][NT][4];  // [row tile of 16 columns][plane tile][fragment]
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += kMacRows) {
-    const int rows = static_cast<int>(min64(kMacRows, r_end - r0));
-    __syncthreads();  // table loaded / previous tile consumed
-    // coefficient bytes, [plane c * k + kk][permuted row]
-    for (int i = threadIdx.x; i < kMacRows * k; i += kMacThreads) {
-      const int rr = i % kMacRows, kk = i / kMacRows;
-      const uint32_t cw = rr < rows ? coeffs[kk * d + r0 + rr] : 0u;
-      const int pos = (rr & ~15) | ((rr & 3) << 2) | ((rr >> 2) & 3);
-      uint8_t* cb = reinterpret_cast<uint8_t*>(cfb);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        cb[(c * k + kk) * (4 * kMacColStride) + pos] = static_cast<uint8_t>(cw >> (8 * c));
-    }
-    // keystream: lane L takes rows 16 * (L / 4) + L % 4 + {0, 4, 8, 12}, which
-    // are word L of every tile column; warps take the AES block columns
-    const int64_t row0 = r0 + 16 * (lane >> 2) + (lane & 3);
-    if (row0 < r_end) {  // else all four rows are past the end (their coefficient bytes are 0)
-      const uint64_t first0 = offset + static_cast<uint64_t>(row0) * ctr_ct + c0;
-      const int skip = static_cast<int>(first0 & 15);
-      for (int b = warp; b < kMacAesBlocks; b += kMacWarps) {
-        uint64_t ctr[4];
-        uint4 w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ctr[i] = ((first0 + 4ull * i * ctr_ct) >> 4) + b;
-        aes256_ctr_cf<4>(lane_base, rk, nonce_lo, nonce_hi, ctr, w);
-        const uint32_t wi[4][4] = {{w[0].x, w[1].x, w[2].x, w[3].x},
-                                   {w[0].y, w[1].y, w[2].y, w[3].y},
-                                   {w[0].z, w[1].z, w[2].z, w[3].z},
-                                   {w[0].w, w[1].w, w[2].w, w[3].w}};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // 4 rows x 4 byte columns -> 4 byte columns x 4 rows
-          const uint32_t t0 = __byte_perm(wi[i][0], wi[i][1], 0x5140);
-          const uint32_t t1 = __byte_perm(wi[i][2], wi[i][3], 0x5140);
-          const uint32_t t2 = __byte_perm(wi[i][0], wi[i][1], 0x7362);
-          const uint32_t t3 = __byte_perm(wi[i][2], wi[i][3], 0x7362);
-          const uint32_t o[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                                 __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = 16 * b + 4 * i + c - skip;
-            if (static_cast<unsigned>(col) < static_cast<unsigned>(kMacColsPad))
-              tile[col * kMacColStride + lane] = o[c];
-          }
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kMacRows / 32; ++kc) {
-      uint32_t bf[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        bf[nt][0] = cfb[(8 * nt + g) * kMacColStride + 8 * kc + t4];
-        bf[nt][1] = cfb[(8 * nt + g) * kMacColStride + 8 * kc + 4 + t4];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t* p = tile + (16 * (2 * warp + mt) + g) * kMacColStride + 8 * kc + t4;
-        const uint32_t a[4] = {p[0], p[8 * kMacColStride], p[4], p[8 * kMacColStride + 4]};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_u8(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rel = 16 * (2 * warp + mt) + g + (e >> 1) * 8;
-      const uint64_t col = c0 + rel;
-      const uint64_t coord = col / 92, digit = col % 92;
-      // the tile's padding, past the row, or a dead byte
-      if (rel >= kMacCols || col >= ctr_ct || digit >= 88) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int plane = 8 * nt + 2 * t4 + (e & 1);
-        const int32_t v = acc[mt][nt][e];
-        if (plane >= 4 * k || v == 0) continue;
-        atomicAdd(&out[(static_cast<uint64_t>(plane) * n + coord) * 88 + digit],
-                  static_cast<unsigned long long>(v));
-      }
-    }
+  mac_sweep<NT, 2, false>(smem, tables, rk, nonce_lo, nonce_hi, offset, coeffs, k, d, n, r_begin,
+                          min64(d, r_begin + seg_rows), 0, k, out);
 }
 
 template <int NT>
@@ -215,6 +313,21 @@ int launch_mac(dim3 grid, cudaStream_t stream, const uint32_t* tables, const Rou
       tables, rk, nonce_lo, nonce_hi, offset, coeffs, k, d, n, seg_rows, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The many-lane form, under K3's kernel name in a namespace of its own.
+namespace lanes {
+__global__ void __launch_bounds__(kMacThreads, 1)
+eval_mac_kernel(const uint32_t* __restrict__ tables, const __grid_constant__ RoundKeys rk,
+                uint32_t nonce_lo, uint32_t nonce_hi, uint64_t offset,
+                const uint32_t* __restrict__ coeffs, int k, int64_t d, int64_t n,
+                const __grid_constant__ MacSegments seg, unsigned long long* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int y = blockIdx.y;
+  mac_sweep<kWideTiles, 1, true>(smem, tables, rk, nonce_lo, nonce_hi, offset, coeffs, k, d, n,
+                                 seg.row_begin[y], seg.row_end[y], seg.lane0[y], seg.lanes[y],
+                                 out);
+}
+}  // namespace lanes
 
 // ---- K4 ------------------------------------------------------------------
 constexpr int kEncThreads = 512;       // 16 warps: 8 row tiles of 16 ciphertexts x 2 nibbles
@@ -384,6 +497,41 @@ extern "C" int cls_eval_mac_planes(const void* tables, const void* rk_host, uint
     case 3: return launch_mac<3>(grid, st, tb, rk, nonce_lo, nonce_hi, offset, cf, kk, d, n, seg, o);
     default: return launch_mac<4>(grid, st, tb, rk, nonce_lo, nonce_hi, offset, cf, kk, d, n, seg, o);
   }
+}
+
+// The many-lane form.  segs_host: int32 [count, 4] on the host, a row each
+// (row_begin, row_end, lane0, lanes), 1 <= count <= 128; a segment outside
+// the rows or lanes, or of more than kMacMaxSegment rows or kWideLanes lanes,
+// is cudaErrorInvalidValue before any launch.  out: int64 [4, k, n, 88], zeroed.
+extern "C" int cls_eval_mac_lanes(const void* tables, const void* rk_host, uint32_t nonce_lo,
+                                  uint32_t nonce_hi, uint64_t offset, const void* coeffs,
+                                  int64_t k, int64_t d, int64_t n, const void* segs_host,
+                                  int64_t count, void* out, void* stream) {
+  if (count < 1 || count > kWideMaxSegments || d >= (int64_t{1} << 31) || k >= (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MacSegments seg{};
+  const int32_t* s = static_cast<const int32_t*>(segs_host);
+  for (int64_t i = 0; i < count; ++i) {
+    const int32_t* r = s + 4 * i;
+    if (r[0] < 0 || r[1] <= r[0] || r[1] > d || r[1] - r[0] > kMacMaxSegment || r[2] < 0 ||
+        r[3] < 1 || r[3] > kWideLanes || r[2] + r[3] > k)
+      return static_cast<int>(cudaErrorInvalidValue);
+    seg.row_begin[i] = r[0];
+    seg.row_end[i] = r[1];
+    seg.lane0[i] = r[2];
+    seg.lanes[i] = r[3];
+  }
+  int bytes = 0;
+  const cudaError_t err =
+      cf_configure(lanes::eval_mac_kernel, kWideBeforeTable, kWideTileBytes, &bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t gx = (92 * n + kWideCols - 1) / kWideCols;
+  lanes::eval_mac_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(count)),
+                           kMacThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(tables), round_keys(rk_host), nonce_lo, nonce_hi, offset,
+      static_cast<const uint32_t*>(coeffs), static_cast<int>(k), d, n, seg,
+      static_cast<unsigned long long*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out_lo, out_hi: int32 [count, 88], zeroed.

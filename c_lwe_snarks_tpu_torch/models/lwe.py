@@ -231,6 +231,7 @@ def eval_poly_multi(
     *,
     tile: int | None = None,
     impl: str = "auto",
+    sections=None,
 ) -> torch.Tensor:
     """k homomorphic polynomial evaluations sharing one keystream pass.
 
@@ -246,6 +247,8 @@ def eval_poly_multi(
     keystream past the section by zero); "auto" is "fused": K3 takes any
     byte offset, any row count and any degree (it sums signed 32-bit row segments
     into int64), so none of the JAX package's eligibility rules carry over.
+    ``sections``: where the coefficients may be nonzero, for K3
+    (``eval_fused.eval_mac_planes``); the scan form reads every term.
     """
     if impl not in ("auto", "fused", "scan"):
         raise ValueError(f"unknown impl {impl!r}")
@@ -259,7 +262,7 @@ def eval_poly_multi(
         return dg.carry_fold(
             eval_poly_multi_acc(key, section_offset, b_rows, coeffs, params, tile=tile_eff))
     acc_a = eval_fused.eval_mac_planes(
-        key, section_offset, coeffs, params.n, params.ctr_ct)  # [4, k, n, 88]
+        key, section_offset, coeffs, params.n, params.ctr_ct, sections=sections)  # [4, k, n, 88]
     cb = u32_to_bytes(coeffs)  # [k, d, 4]
     acc_b = dg.u8_matmul(
         cb.permute(2, 0, 1).reshape(4 * k, d), b_rows[:, :DIGITS]).reshape(4, k, DIGITS)

@@ -15,7 +15,9 @@ zk-SNARK, reference src/snark.c):
   Enc(beta t), evaluate the witness bits over the bv section, then (w, h)
   over the s section and (v, h) over the as section; the proof bytes are
   the same.  The evaluations' epilogue and the five smudges are one K10
-  launch each.
+  launch each.  ``prover_batch`` proves B statements of one circuit with
+  one sweep for all 5B evaluations (K3's many-lane form), each proof the
+  bytes ``prover`` gives.
 * verifier: the 5 decrypts, t(s) and v_0(s), the mod-p relations and the
   test-error bound in one launch of K11 on the card, with no host sync up
   to the returned bool tensor.
@@ -221,6 +223,7 @@ def prover_polys(
     params: Params,
     *,
     mesh=None,
+    t_degree_lead: tuple[int, int] | None = None,
 ) -> tuple:
     """(delta, w, v, h) of the prover: w = delta * t + sum_{witness bit
     i-1} v_i, v = v_0 + w and h = (v^2 - 1) / t on the CRT-NTT engine.
@@ -230,13 +233,14 @@ def prover_polys(
     NTT's large products run on the 4-step transform.
 
     t's true degree and leading coefficient are read from the device once,
-    first; after that nothing here moves data to the host (on the card:
+    first, unless given (``t_degree_lead``, as ``ntt.poly_degree_and_lead``
+    returns them); after that nothing here moves data to the host (on the card:
     K1 for delta, K7 for the row-sum, K6 for v^2 and the division).  t
     and v_0 are widened to int64 words once each; K7 reads v as it is."""
     d, m = params.d, params.m
     with span("lwe.prover.polys"):
         t = ssp.t.to(torch.int64)
-        t_degree, t_lead = ntt.poly_degree_and_lead(t)
+        t_degree, t_lead = t_degree_lead or ntt.poly_degree_and_lead(t)
         delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
         if mesh is None:
             rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
@@ -262,22 +266,35 @@ def onepass_terms(
     witness: torch.Tensor,
     params: Params,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(b-rows uint8 [2d+m, 88], coefficients int64 [5, 2d+m]) of the one
-    sweep over every CRS term.
+    """(b-rows uint8 [2d+m, 88], coefficients int64 [5B, 2d+m]) of the one
+    sweep over every CRS term for B proofs: w, h, v [B, d], delta [B] and
+    witness [B, m], or one proof's without the batch axis (B = 1).
 
     The CRS sections are back to back in the stream, so (w, h over s),
     (v, h over as) and b_w (delta at the bt term + witness bits over bv)
     are five coefficient lanes over the same contiguous term range, each
-    lane zero outside its section."""
+    lane zero outside its section; lane t B + j is lane t of proof j
+    (``onepass_sections``)."""
     d, m = params.d, params.m
-    coeffs = torch.zeros(5, 2 * d + m, dtype=torch.int64, device=w.device)
-    coeffs[0, :d] = w
-    coeffs[1, :d] = h
-    coeffs[2, d : 2 * d] = v
-    coeffs[3, d : 2 * d] = h
-    coeffs[4, 2 * d] = delta
-    coeffs[4, 2 * d + 1 :] = witness[: m - 1].to(torch.int64)
-    return torch.cat([crs.b_s, crs.b_as, crs.b_t[None], crs.b_v]), coeffs
+    w, h, v = (x.reshape(-1, d) for x in (w, h, v))
+    b = w.shape[0]
+    coeffs = torch.zeros(5, b, 2 * d + m, dtype=torch.int64, device=w.device)
+    coeffs[0, :, :d] = w
+    coeffs[1, :, :d] = h
+    coeffs[2, :, d : 2 * d] = v
+    coeffs[3, :, d : 2 * d] = h
+    coeffs[4, :, 2 * d] = delta.reshape(b)
+    coeffs[4, :, 2 * d + 1 :] = witness.reshape(b, m)[:, : m - 1].to(torch.int64)
+    b_all = torch.cat([crs.b_s, crs.b_as, crs.b_t[None], crs.b_v])
+    return b_all, coeffs.reshape(5 * b, 2 * d + m)
+
+
+def onepass_sections(params: Params, batch: int = 1) -> tuple:
+    """The lanes of ``onepass_terms``'s B = ``batch`` proofs that each CRS
+    section reads, as ``eval_fused.eval_mac_planes``'s sections: (w, h) of
+    every proof over s, (v, h) over as, b_w over bt and bv."""
+    d, m, b = params.d, params.m, batch
+    return ((0, d, 0, 2 * b), (d, 2 * d, 2 * b, 4 * b), (2 * d, 2 * d + m, 4 * b, 5 * b))
 
 
 def _prover_evals_onepass(
@@ -380,6 +397,47 @@ def prover(
                 evals = _prover_evals_stagewise(
                     crs_key, crs, w, h, v, delta, witness, params, tile, mesh)
         return smudge_proof(ent_key, ent_offset, evals, params)
+
+
+def prover_batch(
+    crs_key: sampling.PRGKey,
+    ent_key: sampling.PRGKey,
+    offsets,
+    crs: CRS,
+    ssp: tssp.SSP,
+    witnesses,
+    params: Params,
+) -> list[Proof]:
+    """Proofs of B statements of one circuit, one a (entropy offset,
+    witness) pair, in the order of ``offsets``: proof j is byte for byte
+    ``prover(crs_key, ent_key, offsets[j], crs, ssp, witnesses[j], params)``.
+
+    t's degree and leading coefficient are read from the device once for
+    the batch; each statement's (delta, w, v, h) comes from
+    ``prover_polys``; then all 5B evaluations are one keystream sweep
+    (``onepass_terms``, K3's many-lane form: each CRS section reads only its
+    own 2B or B lanes, ``onepass_sections``), the b-row MAC and one K10
+    fold; each proof is smudged from its own offset (``smudge_proof``).
+    witnesses: uint8 bits [m] each, on the CRS's device."""
+    offsets, witnesses = list(offsets), list(witnesses)
+    if len(offsets) != len(witnesses):
+        raise ValueError(f"{len(offsets)} offsets for {len(witnesses)} witnesses")
+    if not offsets:
+        return []
+    b, n = len(offsets), params.n
+    with span("lwe.prover_batch"):
+        t_info = ntt.poly_degree_and_lead(ssp.t)
+        # through the module's name, so that a wrapper put there sees each call
+        polys = [prover_polys(ent_key, off, ssp, wit, params, t_degree_lead=t_info)
+                 for off, wit in zip(offsets, witnesses)]
+        with span("lwe.prover_batch.evals"):
+            delta, w, v, h = (torch.stack(x) for x in zip(*polys))
+            b_all, coeffs = onepass_terms(crs, w, h, v, delta, torch.stack(witnesses), params)
+            evals = tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params,
+                                         sections=onepass_sections(params, b))
+            # lane t B + j -> proof j's evaluation t, each proof's five contiguous
+            evals = evals.reshape(5, b, n + 1, tlwe.DIGITS).transpose(0, 1).contiguous()
+        return [smudge_proof(ent_key, off, evals[j], params) for j, off in enumerate(offsets)]
 
 
 # the evaluation each smudging draw lands on, in draw order h, hat_h, hat_v,

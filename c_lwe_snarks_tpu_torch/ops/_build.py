@@ -47,6 +47,8 @@ SIGNATURES = {
     "cls_keystream_fold_p": ("p", "h", "u32", "u32", "u64", "i64", "p"),
     "cls_eval_mac_planes": (
         "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "i64", "p"),
+    "cls_eval_mac_lanes": (
+        "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "i64", "h", "i64", "p"),
     "cls_encrypt_b_fused": (
         "p", "h", "u32", "u32", "u64", "p", "i64", "i64", "p", "p"),
     "cls_keystream_blocks_v1": ("p", "u32", "u32", "u64", "i64", "p"),

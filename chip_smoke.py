@@ -11,7 +11,11 @@ non-zero, and only a full pass prints the final JSON line):
    bit-exact, at small shapes (AES-block leads 0 and 8, a counter
    low-word wrap, a counter above 2^32, ragged counts, k = 5 lanes) and at
    the largest shape the release main path gives it, where both are timed
-   with CUDA events; K1 (as bytes, at 1, 2 and 171 blocks too) and K5 also
+   with CUDA events; K3's many-lane form at the shape ``prover_batch``
+   gives it at release (k = 50 over ``onepass_sections``' three sections)
+   against its form of 8 lanes on random and on all-0xFFFFFFFF
+   coefficients, and against the plain version on row slices across its
+   segments' edges, timed; K1 (as bytes, at 1, 2 and 171 blocks too) and K5 also
    against each other, against the host AES cipher and against the
    committed keystream windows of the JAX package's oracle; K5 at counts
    around its quad's group (32 blocks), a warp's tile (256) and a CUDA
@@ -49,6 +53,10 @@ non-zero, and only a full pass prints the final JSON line):
    (no host sync); check that the SSP is uint32 on the card, as in the JAX
    package, and print the peak device memory beside the int64 SSP's;
    then the same run five more times for the spread of the stage walls;
+   then ``prover_batch`` over ten statements of the release circuit with
+   the counters reset just before (``phase_batch``): each proof is
+   ``snark.prover``'s bytes, the satisfying statement's verifies, and K3
+   runs once, in its many-lane form;
    then one run at d = 2^16, m = 43,690 (``phase_d16``, the counters and
    the peak-memory counter reset): it verifies and rejects a tampered h;
 5. walk the stage-wise path at release parameters with the counters reset
@@ -95,6 +103,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "c_lwe_snarks_tpu/ops/aes_pallas.py:262"),
     "eval_mac_planes": ("c_lwe_snarks_tpu_torch/csrc/eval_fused.cu",
                         "c_lwe_snarks_tpu/ops/eval_fused.py:181"),
+    # K3's many-lane form (lanes::eval_mac_kernel): prover_batch's one sweep
+    "eval_mac_lanes": ("c_lwe_snarks_tpu_torch/csrc/eval_fused.cu",
+                       "c_lwe_snarks_tpu/ops/eval_fused.py:181"),
     "encrypt_b_fused": ("c_lwe_snarks_tpu_torch/csrc/eval_fused.cu",
                         "c_lwe_snarks_tpu/ops/eval_fused.py:335"),
     "keystream_blocks_v1": ("c_lwe_snarks_tpu_torch/csrc/keystream_bitsliced.cu",
@@ -120,6 +131,9 @@ STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "
 # needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
 SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
                 "gated_rowsum_p", "matvec_mod_p", "carry_fold", "verify")
+# prover_batch: K1 (delta), K6, K7, K3's many-lane form, K10
+BATCH_PATH = ("keystream_words", "eval_mac_lanes", "ntt", "gated_rowsum_p", "carry_fold")
+BATCH = 10  # statements of the batch (the benchmark's release.prove_batch10)
 SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
 # launches of one release run, by design: K8 t(s) and v at setup; K9
 # setup's messages; K10 setup's b-rows, the prover's epilogue and its five
@@ -1107,6 +1121,9 @@ def phase_kernels(results: dict) -> None:
                 at = bnd["bound_ms"] * CF_OPS / BITSLICED_OPS
                 print(f"phase kernels: {name} [{shape}] at K1's {CF_OPS} operations a block: "
                       f"{at:.4f} ms ({100 * at / ms:.1f} %)")
+    lanes_err, lanes_result = lanes_case(P, crs_key, gen)
+    worse("eval_mac_lanes", lanes_err)
+    results["eval_mac_lanes"] = {"max_abs_err": errs["eval_mac_lanes"], **lanes_result}
     copy = copy_floor(b_rows_bytes(2 * P.d + P.m))
     results["carry_fold"]["b_rows_copy"] = copy
     print(f"phase kernels: carry_fold [a device copy of the b-row form's bytes] {copy['ms']:.4f} "
@@ -1114,6 +1131,74 @@ def phase_kernels(results: dict) -> None:
           f"{copy['bound_ms']:.4f} ms ({100 * copy['bound_ms'] / copy['queued_ms']:.1f} % queued)")
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with a reference (max_abs_err={e})")
+
+
+def lanes_case(P, crs_key, gen) -> tuple[int, dict]:
+    """K3's many-lane form at the shape ``prover_batch`` gives it at release
+    for ``BATCH`` statements: k = 5 B lanes over the three sections of
+    ``onepass_sections`` (segments of ~11,000 rows).  Held exactly against
+    the form of at most 8 lanes on the same lanes (held to the plain
+    version above), on random and on all-0xFFFFFFFF coefficients inside
+    the sections (its signed 32-bit sums at their largest), and against the
+    plain version on 256-row slices across each segment's end; then timed.
+    Returns (max_abs_err, the kernels line's fields)."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.ops import eval_fused
+
+    n, terms, k = P.n, 2 * P.d + P.m, 5 * BATCH
+    sections = tsnark.onepass_sections(P, BATCH)
+    inside = torch.zeros(k, terms, dtype=torch.int64, device=DEVICE)
+    for r0, r1, l0, l1 in sections:
+        inside[l0:l1, r0:r1] = 1
+    segs = eval_fused.lane_segments(terms, n, sections)
+
+    def lanes(c):
+        return eval_fused.eval_mac_planes(crs_key, P.ctr_s, c, n, P.ctr_ct, sections=sections)
+
+    def runs_of_8(c):
+        return torch.cat([eval_fused.eval_mac_planes(crs_key, P.ctr_s, c[lo : lo + 8], n, P.ctr_ct)
+                          for lo in range(0, k, 8)], dim=1)
+
+    rand = torch.randint(0, 1 << 32, (k, terms), generator=gen).to(DEVICE) * inside
+    top = ((1 << 32) - 1) * inside
+    err = max(max_abs_err(lanes(c), runs_of_8(c)) for c in (rand, top))
+    before = eval_fused.LAUNCHES["eval_mac_lanes"]
+    sliced_rows = torch.zeros(terms, dtype=torch.int64, device=DEVICE)
+    slices = []  # disjoint, in row order
+    for e in sorted({r1 for _, r1, _, _ in segs}):
+        slices.append((max(slices[-1][1] if slices else 0, e - 128), min(terms, e + 128)))
+    for lo, hi in slices:
+        sliced_rows[lo:hi] = 1
+    sliced = rand * sliced_rows
+    got = lanes(sliced)
+    launches = eval_fused.LAUNCHES["eval_mac_lanes"] - before
+    want, plain_ms = torch.zeros_like(got), 0.0
+    for lo, hi in slices:
+        part, ms = timed(lambda: eval_fused.eval_mac_planes_plain(
+            crs_key, P.ctr_s + lo * P.ctr_ct, sliced[:, lo:hi], n, P.ctr_ct))
+        want += part
+        plain_ms += ms
+    err = max(err, max_abs_err(got, want))
+    del got, want
+    stream_blocks = -(-terms * P.ctr_ct // 16)
+    bnd = bound(8 * k * terms + 8 * 4 * k * n * 88, CF_OPS * stream_blocks,
+                2 * 4 * int(inside.sum()) * n * 88)
+    ms = cuda_ms(lambda: lanes(rand), 5)
+    queued_ms = cuda_ms(lambda: lanes(rand), 5, queued=True)
+    shape = (f"prover_batch's sweep at B={BATCH}: k={k} x {terms} terms over 3 sections, n={n}, "
+             f"{len(segs)} segments")
+    print(f"phase kernels: eval_mac_lanes [{shape}] max_abs_err={err} (tolerance 0; against the "
+          f"form of 8 lanes, and the plain version over {sum(hi - lo for lo, hi in slices)} rows "
+          f"across {len(slices)} segment ends); {launches} launch; kernel {ms:.4f} ms issued back "
+          f"to back ({100 * bnd['bound_ms'] / ms:.1f} % of the bound; {queued_ms:.4f} ms queued "
+          f"behind a device wait: {100 * bnd['bound_ms'] / queued_ms:.1f} %), plain over the "
+          f"slices {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+    check(launches == 1, f"eval_mac_lanes: {launches} launches for one sweep at B={BATCH}")
+    case = {"shape": shape, "ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, **bnd}
+    return err, {"ms": ms, "queued_ms": queued_ms, "plain_ms": plain_ms, **bnd,
+                 "library_ms": None, "cases": [case]}
 
 
 def phase_cores(label: str) -> None:
@@ -1476,6 +1561,59 @@ def phase_release(label: str):
     return run, launches
 
 
+def phase_batch(run, label: str) -> dict:
+    """``prover_batch`` over ``BATCH`` statements of the release circuit
+    (its witness and others of random bits), with every launch counter
+    reset just before: each proof is ``snark.prover``'s bytes for its
+    offset and witness, the first is the release run's, the satisfying
+    statement's verifies, and the batch launches K3's many-lane form once,
+    its form of 8 lanes never, K10 once and once a proof's smudges."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.models import ssp as tssp
+    from c_lwe_snarks_tpu_torch.ops import sampling
+    from c_lwe_snarks_tpu_torch.utils import serial
+    from c_lwe_snarks_tpu_torch.utils.params import release
+
+    P = release()
+    crs_key, ent_key = sampling.PRGKey(CRS_SEED, DEVICE), sampling.PRGKey(ENT_SEED, DEVICE)
+    off0 = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
+    offsets = [off0 + i * tsnark.prover_entropy_bytes(P) for i in range(BATCH)]
+    gen = torch.Generator(device=DEVICE).manual_seed(BATCH)
+    wits = [run.witness] + [torch.randint(0, 2, (P.m,), generator=gen, device=DEVICE,
+                                          dtype=torch.uint8) for _ in range(BATCH - 1)]
+
+    def singles():
+        return [serial.proof_to_bytes(tsnark.prover(crs_key, ent_key, off, run.crs, run.ssp, w, P), P)
+                for off, w in zip(offsets, wits)]
+
+    counters = reset_counters()
+    want, singles_ms = timed(singles)
+    one = {name: x // BATCH for name, x in read_counters(counters).items()}
+    counters = reset_counters()
+    proofs, batch_ms = timed(lambda: tsnark.prover_batch(
+        crs_key, ent_key, offsets, run.crs, run.ssp, wits, P))
+    launches = read_counters(counters)
+    got = [serial.proof_to_bytes(pi, P) for pi in proofs]
+    same = sum(g == w for g, w in zip(got, want))
+    first = got[0] == serial.proof_to_bytes(run.proof, P)
+    verified = bool(tsnark.verifier(run.vrs, run.ssp, proofs[0], P))
+    print(f"phase batch: prover_batch over {BATCH} statements {batch_ms:.3f} ms, {BATCH} provers "
+          f"{singles_ms:.3f} ms (one call each, CUDA events) [{label}]; {same} of {BATCH} proofs "
+          f"snark.prover's bytes, the first the release run's: {first}, verified={verified}; "
+          f"launches {launches}")
+    check(same == BATCH and first, "batch: a proof differs from snark.prover's")
+    check(verified, "batch: the verifier rejected the satisfying statement's proof")
+    for name in BATCH_PATH:
+        check(launches[name] > 0, f"batch: kernel {name} was not launched")
+    planned = {"eval_mac_lanes": 1, "eval_mac_planes": 0,
+               "carry_fold": 1 + BATCH * (one["carry_fold"] - 1)}
+    for name, want_n in planned.items():
+        check(launches[name] == want_n, f"batch: {launches[name]} launches of {name}, planned {want_n}")
+    return launches
+
+
 def phase_d16(label: str) -> dict:
     """One run of the protocol at d = 2^16, m = 43,690 (n = 1,470) through
     the package's entry point, with the launch counters and the peak-memory
@@ -1808,14 +1946,17 @@ def main() -> int:
     phase_profile(label)
     phase_golden()
     run, release_launches = phase_release(label)
+    batch_launches = phase_batch(run, label)
     d16_launches = phase_d16(label)
     stagewise_launches = phase_stagewise(run, label)
     sharded_launches = phase_sharded(run, label)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": release_launches[name] if name in RELEASE_PATH else stagewise_launches[name],
+         "launches": (release_launches if name in RELEASE_PATH else batch_launches
+                      if name in BATCH_PATH else stagewise_launches)[name],
          "launches_by_path": {"release": release_launches[name],
+                              "batch": batch_launches[name],
                               "d16": d16_launches[name],
                               "stagewise": stagewise_launches[name],
                               "sharded": sharded_launches[name]},

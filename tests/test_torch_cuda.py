@@ -211,6 +211,44 @@ def test_k3_beyond_the_int32_bound(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,sectioned", [(9, False), (50, False), (50, True)])
+def test_k3_many_lanes_at_release_width(cuda, k, sectioned):
+    """K3's many-lane form (k > 8) at release n on 700 rows: every lane over
+    every row (windows of 20, 20 and 10 lanes at k = 50), or three sections
+    each read with its own lanes alone (the prover's batch layout); one
+    launch, the plain version's planes, at offsets with lead 0 and 8."""
+    key = sampling.PRGKey(SEED, cuda)
+    n, d = 1470, 700
+    rng = np.random.default_rng(k + sectioned)
+    c = torch.from_numpy(rng.integers(0, 1 << 32, size=(k, d), dtype=np.int64)).to(cuda)
+    sections = ((0, d, 0, k),)
+    if sectioned:
+        sections = ((0, 300, 0, 20), (300, 600, 20, 40), (600, d, 40, k))
+        for r0, r1, l0, l1 in sections:
+            c[l0:l1, :r0] = 0
+            c[l0:l1, r1:] = 0
+    for off in (16 * 9 + 8, 1 << 20):
+        before = dict(eval_fused.LAUNCHES)
+        got = eval_fused.eval_mac_planes(key, off, c, n, 92 * n, sections=sections)
+        assert eval_fused.LAUNCHES["eval_mac_lanes"] == before["eval_mac_lanes"] + 1
+        assert eval_fused.LAUNCHES["eval_mac_planes"] == before["eval_mac_planes"]
+        _eq(got, eval_fused.eval_mac_planes_plain(key, off, c, n, 92 * n, sections=sections))
+
+
+@pytest.mark.gpu
+def test_k3_many_lanes_beyond_the_int32_bound(cuda):
+    """24 lanes (windows of 20 and 4) of 150,000 all-0xFFFFFFFF terms: each
+    segment's signed 32-bit sums stay exact, and the segments (over several
+    launches: more than 128 of them) add into int64 past 2^32."""
+    key = sampling.PRGKey(SEED, cuda)
+    n = 2
+    c = torch.full((24, 150000), 0xFFFFFFFF, dtype=torch.int64, device=cuda)
+    got = eval_fused.eval_mac_planes(key, 8, c, n, 92 * n, sections=((0, 150000, 0, 24),))
+    _eq(got, eval_fused.eval_mac_planes_plain(key, 8, c, n, 92 * n))
+    assert int(got.max()) > 1 << 32
+
+
+@pytest.mark.gpu
 def test_k5_keystream_blocks_v1(cuda):
     """The bitsliced kernel against its plain version and against K1: ragged
     counts around a quad's group (32 blocks), a warp's tile (256) and a CUDA
@@ -902,6 +940,54 @@ def release_circuit():
 
 def _fields(obj) -> dict:
     return {k: v for k, v in vars(obj).items() if isinstance(v, torch.Tensor)}
+
+
+@pytest.mark.gpu
+def test_prover_batch_at_release_equals_prover(release_circuit):
+    """Ten statements of the release circuit (random witness bits) in one
+    ``prover_batch``: each proof is ``snark.prover``'s bytes for its offset
+    and witness; one many-lane K3 launch and one host sync (t's degree) for
+    the batch, none of K3's form of 8 lanes.  The batch's and the ten
+    provers' walls are printed."""
+    import time
+
+    from c_lwe_snarks_tpu_torch.utils import spans
+
+    P, ssp, crs, _, _ = release_circuit
+    dev = torch.device("cuda")
+    crs_key, ent_key = sampling.PRGKey(SEED, dev), sampling.PRGKey(bytes(range(40, 80)), dev)
+    off0 = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
+    offsets = [off0 + i * tsnark.prover_entropy_bytes(P) for i in range(10)]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    wits = [torch.randint(0, 2, (P.m,), generator=gen, device=dev, dtype=torch.uint8)
+            for _ in offsets]
+
+    def batch():
+        return [serial.proof_to_bytes(pi, P) for pi in
+                tsnark.prover_batch(crs_key, ent_key, offsets, crs, ssp, wits, P)]
+
+    def singles():
+        return [serial.proof_to_bytes(tsnark.prover(crs_key, ent_key, off, crs, ssp, w, P), P)
+                for off, w in zip(offsets, wits)]
+
+    want, got = singles(), batch()  # warm
+    assert got == want
+    walls = {}
+    for name, run in (("batch", batch), ("singles", singles)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert run() == want
+        walls[name] = time.perf_counter() - t0
+    print(f"prover_batch at release, 10 statements: {walls['batch']:.4f} s; ten provers "
+          f"{walls['singles']:.4f} s")
+    spans.reset()
+    before = dict(eval_fused.LAUNCHES)
+    with spans.recording():
+        tsnark.prover_batch(crs_key, ent_key, offsets, crs, ssp, wits, P)
+    assert spans.sync_sites() == {"ntt.poly_degree_and_lead": 1}
+    assert eval_fused.LAUNCHES["eval_mac_lanes"] == before["eval_mac_lanes"] + 1
+    assert eval_fused.LAUNCHES["eval_mac_planes"] == before["eval_mac_planes"]
+    spans.reset()
 
 
 @pytest.mark.gpu

@@ -289,54 +289,65 @@ def test_k4_draw_split_covers_every_draw(count, n):
 MAC_COLS, MAC_PAD, MAC_ROWS, MAC_STRIDE = 496, 512, 128, 36
 
 
-def k3_model(key, off: int, coeffs: np.ndarray, n: int, r_begin: int, r_end: int) -> np.ndarray:
+def k3_model(key, off: int, coeffs: np.ndarray, n: int, r_begin: int, r_end: int,
+             cols: int = MAC_COLS, lane0: int = 0, lanes: int | None = None,
+             rows_per_tile: int = MAC_ROWS) -> np.ndarray:
     """int64 [4k, 92n]: the sums of one row segment by the kernel's data
     path: a lane encrypts one block column of 4 rows 4 apart, transposes
     the 4 x 4 bytes of each word with PRMTs and stores one word per byte
-    column; the coefficient bytes take the same row permutation."""
+    column; the coefficient bytes take the same row permutation.  A block
+    owns ``cols`` byte columns (the many-lane form: 240, in tiles of 256
+    rows, a lane's 4 rows 128 apart taking words L and 32 + L) and reads
+    the window of ``lanes`` lanes from ``lane0`` (by default all k), plane
+    c * lanes + kk of its tile going to plane c * k + lane0 + kk."""
     k, d = coeffs.shape
+    kw = k if lanes is None else lanes
+    pad, nplanes = cols + 16, max(32, 4 * kw)
+    R, stride = rows_per_tile, rows_per_tile // 4 + 4
     ctr_ct = 92 * n
-    last_row = r_begin + -(-(r_end - r_begin) // MAC_ROWS) * MAC_ROWS  # dead lanes encrypt too
+    last_row = r_begin + -(-(r_end - r_begin) // R) * R  # dead lanes encrypt too
     ks, base = stream_bytes(key, off, off + last_row * ctr_ct + ctr_ct + 16 * 33)
     lane = np.arange(32)
     out = np.zeros((4 * k, ctr_ct), np.int64)
-    for c0 in range(0, ctr_ct, MAC_COLS):
-        acc = np.zeros((32, MAC_PAD), np.int64)  # [plane, tile column]
-        tile = np.full((MAC_PAD, MAC_STRIDE), 0x4D4D4D4D, U32)  # stale words
-        for r0 in range(r_begin, r_end, MAC_ROWS):
-            rows = min(MAC_ROWS, r_end - r0)
-            cfb = np.zeros((32, 4 * MAC_STRIDE), np.int64)
-            for rr in range(MAC_ROWS):
+    for c0 in range(0, ctr_ct, cols):
+        acc = np.zeros((nplanes, pad), np.int64)  # [plane, tile column]
+        tile = np.full((pad, stride), 0x4D4D4D4D, U32)  # stale words
+        for r0 in range(r_begin, r_end, R):
+            rows = min(R, r_end - r0)
+            cfb = np.zeros((nplanes, 4 * stride), np.int64)
+            for rr in range(R):
                 pos = (rr & ~15) | ((rr & 3) << 2) | ((rr >> 2) & 3)
-                for kk in range(k):
-                    cw = int(coeffs[kk, r0 + rr]) if rr < rows else 0
+                for kk in range(kw):
+                    cw = int(coeffs[lane0 + kk, r0 + rr]) if rr < rows else 0
                     for c in range(4):
-                        cfb[c * k + kk, pos] = (cw >> (8 * c)) & 255
-            row0 = r0 + 16 * (lane >> 2) + (lane & 3)
-            live = row0 < r_end
-            first0 = off + row0 * ctr_ct + c0
-            skip = first0 & 15
-            for b in range(32):
-                w = np.zeros((4, 32, 4), U32)  # [row i, lane, word]
-                for i in range(4):
-                    ctr = ((first0 + 4 * i * ctr_ct) >> 4) + b
-                    for ln in range(32):
-                        at = 16 * int(ctr[ln]) - base
-                        w[i, ln] = ks[at: at + 16].view("<u4")
-                for i in range(4):
-                    t0, t1 = prmt(w[0, :, i], w[1, :, i], 0x5140), prmt(w[2, :, i], w[3, :, i], 0x5140)
-                    t2, t3 = prmt(w[0, :, i], w[1, :, i], 0x7362), prmt(w[2, :, i], w[3, :, i], 0x7362)
-                    o = [prmt(t0, t1, 0x5410), prmt(t0, t1, 0x7632),
-                         prmt(t2, t3, 0x5410), prmt(t2, t3, 0x7632)]
-                    for c in range(4):
-                        col = 16 * b + 4 * i + c - skip
-                        ok = live & (col >= 0) & (col < MAC_PAD)
-                        tile[col[ok], lane[ok]] = o[c][ok]
-            tbytes = tile[:, :32].copy().view(np.uint8).astype(np.int64)  # [column, permuted row]
-            acc += cfb[:, :MAC_ROWS] @ tbytes.T
+                        cfb[c * kw + kk, pos] = (cw >> (8 * c)) & 255
+            for h in range(R // 128):
+                row0 = r0 + 128 * h + 16 * (lane >> 2) + (lane & 3)
+                live = row0 < r_end
+                first0 = off + row0 * ctr_ct + c0
+                skip = first0 & 15
+                for b in range(pad // 16):
+                    w = np.zeros((4, 32, 4), U32)  # [row i, lane, word]
+                    for i in range(4):
+                        ctr = ((first0 + 4 * i * ctr_ct) >> 4) + b
+                        for ln in range(32):
+                            at = 16 * int(ctr[ln]) - base
+                            w[i, ln] = ks[at: at + 16].view("<u4")
+                    for i in range(4):
+                        t0, t1 = prmt(w[0, :, i], w[1, :, i], 0x5140), prmt(w[2, :, i], w[3, :, i], 0x5140)
+                        t2, t3 = prmt(w[0, :, i], w[1, :, i], 0x7362), prmt(w[2, :, i], w[3, :, i], 0x7362)
+                        o = [prmt(t0, t1, 0x5410), prmt(t0, t1, 0x7632),
+                             prmt(t2, t3, 0x5410), prmt(t2, t3, 0x7632)]
+                        for c in range(4):
+                            col = 16 * b + 4 * i + c - skip
+                            ok = live & (col >= 0) & (col < pad)
+                            tile[col[ok], 32 * h + lane[ok]] = o[c][ok]
+            tbytes = tile[:, : R // 4].copy().view(np.uint8).astype(np.int64)  # [column, permuted row]
+            acc += cfb[:, :R] @ tbytes.T
             assert acc.max() < 1 << 31
-        width = min(MAC_COLS, ctr_ct - c0)
-        out[:, c0: c0 + width] = acc[: 4 * k, :width]
+        width = min(cols, ctr_ct - c0)
+        for c in range(4):
+            out[c * k + lane0: c * k + lane0 + kw, c0: c0 + width] = acc[c * kw: (c + 1) * kw, :width]
     return out
 
 
@@ -358,6 +369,37 @@ def test_k3_segments_add_up(key):
     got = sum(k3_model(key, 8, coeffs, n, lo, min(d, lo + 128)) for lo in range(0, d, 128))
     want = tef.eval_mac_planes_plain(key, 8, torch.from_numpy(coeffs), n, 92 * n)
     np.testing.assert_array_equal(got.reshape(4, k, n, 92)[..., :88], want.numpy())
+
+
+def test_k3_many_lane_tiles_equal_plain(key):
+    """The many-lane form's data path on the wrapper's own segments: 240
+    columns a block (three column blocks, the last ragged), a window of 10
+    lanes (past the 8 of one tile set) over one section and of 2 over the
+    other, segments of one tile and of 2 rows; coefficients zero outside
+    their section, as the wrapper's caller promises."""
+    n, k, d = 6, 12, 500
+    sections = ((0, 130, 0, 10), (130, d, 10, 12))
+    rng = np.random.default_rng(12)
+    coeffs = np.zeros((k, d), np.int64)
+    for r0, r1, l0, l1 in sections:
+        coeffs[l0:l1, r0:r1] = rng.integers(0, 1 << 32, size=(l1 - l0, r1 - r0), dtype=np.int64)
+    segs = tef.lane_segments(d, n, sections)
+    assert [s[1] - s[0] for s in segs] == [130, 256, 114]
+    got = sum(k3_model(key, 40, coeffs, n, r0, r1, cols=constant("kWideCols"), lane0=l0, lanes=w,
+                       rows_per_tile=constant("kWideRows"))
+              for r0, r1, l0, w in segs)
+    want = tef.eval_mac_planes_plain(key, 40, torch.from_numpy(coeffs), n, 92 * n)
+    np.testing.assert_array_equal(got.reshape(4, k, n, 92)[..., :88], want.numpy())
+
+
+def test_many_lane_constants_match_the_wrapper():
+    """The wrapper's schedule uses the kernel's own window, columns and table size."""
+    assert constant("kWideLanes") == tef.WIDE_LANES == 20
+    assert constant("kWideCols") == tef.WIDE_COLS and constant("kWideColsPad") == tef.WIDE_COLS + 16
+    assert constant("kWideMaxSegments") == tef.MAX_SEGMENTS
+    assert 4 * constant("kWideLanes") == 8 * constant("kWideTiles")
+    assert tef.MAX_SEGMENT_ROWS == constant("kMacMaxSegment") and tef.WIDE_ROWS == constant("kWideRows")
+    assert constant("kWideRows") % MAC_ROWS == 0
 
 
 def test_k3_row_permutation_is_a_bijection():

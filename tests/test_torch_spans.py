@@ -59,6 +59,12 @@ def _stage(stage, keys, circuit):
     """A request of each benchmark cell: the port's calls it makes."""
     if stage == "prove":
         return serial.proof_to_bytes(_prove(keys, circuit), P)
+    if stage == "prove_batch":  # two statements' proofs in one call, then their bytes
+        wits, inst, crs, _ = circuit
+        step = snark.prover_entropy_bytes(P)
+        proofs = snark.prover_batch(keys[0], keys[1], [OFF_PROVE, OFF_PROVE + step], crs, inst,
+                                    [wits, 1 - wits], P)
+        return [serial.proof_to_bytes(pi, P) for pi in proofs]
     if stage == "setup":
         _, _, crs, vrs = _setup(keys)
         return serial.crs_to_bytes(crs, P), serial.vrs_to_bytes(vrs, P)
@@ -132,6 +138,7 @@ def test_bytes_identical_with_tracing_on_and_off(keys, circuit, artifact):
 
 @pytest.mark.parametrize("stage,syncs,sites", [
     ("prove", 2, {"ntt.poly_degree_and_lead": 1, "serial.proof_to_bytes": 1}),
+    ("prove_batch", 3, {"ntt.poly_degree_and_lead": 1, "serial.proof_to_bytes": 2}),
     ("setup", 2, {"serial.crs_to_bytes": 1, "serial.vrs_to_bytes": 1}),
     ("verify", 0, {}),
 ])
@@ -146,6 +153,7 @@ def test_every_launch_counter_is_counted():
     registered = [id(c) for c in spans._launch_counters]
     for mod in (aes, eval_fused, ntt, modp, digits, verify):
         assert registered.count(id(mod.LAUNCHES)) == 1, mod.__name__
+    assert {"eval_mac_planes", "eval_mac_lanes", "encrypt_b_fused"} <= set(eval_fused.LAUNCHES)
 
 
 def test_launches_of_spans_add_up_to_the_launch_counters(keys, circuit):
@@ -192,7 +200,8 @@ def test_program_span_names_are_not_the_benchmarks():
     bench = {"window", "request"}
     for path in (ROOT / "portbench" / "entries").glob("*.py"):
         bench |= _calls(path, "spans")
-    assert {"lwe.prover", *PROVER_CHILDREN, "lwe.random_ssp", "lwe.setup", "lwe.setup.keys",
+    assert {"lwe.prover", *PROVER_CHILDREN, "lwe.prover_batch", "lwe.prover_batch.evals",
+            "lwe.random_ssp", "lwe.setup", "lwe.setup.keys",
             "lwe.setup.messages", "lwe.setup.encrypt", "lwe.verifier",
             "lwe.serial.proof_to_bytes", "lwe.serial.crs_to_bytes", "lwe.serial.vrs_to_bytes",
             "lwe.serial.proof_from_bytes"} <= program

@@ -2,6 +2,7 @@
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [--profiles tiny toy]
     python tools/make_torch_golden.py --keystream
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py --batch
 
 ``torch_port_digests.json``: for each profile, runs random_ssp -> setup ->
 prover with the seeds of tests/test_snark_tpu.py and records the sha256 of
@@ -18,6 +19,14 @@ above 2^32.
 The PyTorch port is held to both files on the GPU, where no JAX exists
 (chip_smoke.py), so its keystream kernels are checked against bytes that
 did not come from the port's own host cipher.
+
+``torch_port_batch_proofs.json`` (``--batch``): the circuit of
+tests/test_torch_prover_batch.py (d = 64, m = 16, n = 32; random_ssp's
+witness and two more statements of random bits) proved by the JAX
+package's ``prover`` at six entropy offsets, each statement at each: the
+sha256 of every proof's bytes, and the statements' bits.  The port's
+``snark.prover_batch`` is held to them on the CPU, where a JAX prover
+compiled once an offset would take minutes.  Several minutes on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +47,10 @@ GOLDEN_KEYSTREAM = ROOT / "tests" / "golden" / "torch_port_keystream.json"
 KEYSTREAM_SEED = bytes(range(40))
 KEYSTREAM_WINDOWS = [(12345, 96), ((1 << 32) - 3, 64), ((1 << 32) + 98765, 64)]
 PROFILES = {"tiny": dict(d=16, m=8, n=32), "toy": dict(d=256, m=64, n=1470)}
+GOLDEN_BATCH = ROOT / "tests" / "golden" / "torch_port_batch_proofs.json"
+BATCH = dict(d=64, m=16, n=32)
+BATCH_CRS_SEED, BATCH_ENT_SEED = bytes(range(40)), bytes(range(40, 80))
+BATCH_OFFSETS = 6  # proof i at the prover's offset + i * prover_entropy_bytes
 
 
 def jax_digests(d: int, m: int, n: int) -> dict:
@@ -73,6 +86,45 @@ def jax_digests(d: int, m: int, n: int) -> dict:
     return {k: hashlib.sha256(v).hexdigest() for k, v in blobs.items()}
 
 
+def jax_batch_proofs() -> dict:
+    """sha256 of the JAX package's proof of each statement at each offset."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from c_lwe_snarks_tpu.models import snark as tsnark
+    from c_lwe_snarks_tpu.models import ssp as tssp
+    from c_lwe_snarks_tpu.ops import sampling
+    from c_lwe_snarks_tpu.utils import serial
+    from c_lwe_snarks_tpu.utils.params import Params
+
+    P = Params(**BATCH)
+    crs_key, ent_key = sampling.PRGKey(BATCH_CRS_SEED), sampling.PRGKey(BATCH_ENT_SEED)
+    off_setup = tssp.entropy_bytes_random_ssp(P)
+    off_prove = off_setup + tsnark.setup_entropy_bytes(P)
+
+    @jax.jit
+    def circuit():
+        wits, inst = tssp.random_ssp(ent_key, 0, P)
+        crs, _ = tsnark.setup(crs_key, ent_key, off_setup, inst, P)
+        return wits, inst, crs
+
+    wits, inst, crs = circuit()
+    others = np.random.default_rng(5).integers(0, 2, (2, P.m), dtype=np.uint8)
+    statements = [np.asarray(wits, dtype=np.uint8), *others]
+    proofs = {}
+    for i in range(BATCH_OFFSETS):
+        off = off_prove + i * tsnark.prover_entropy_bytes(P)
+        prove = jax.jit(lambda w, off=off: tsnark.prover(crs_key, ent_key, off, crs, inst, w, P))
+        for j, w in enumerate(statements):
+            proofs[f"{i},{j}"] = hashlib.sha256(
+                serial.proof_to_bytes(prove(jnp.asarray(w)), P)).hexdigest()
+        print(f"offset {i} done", flush=True)
+    return {"crs_seed": BATCH_CRS_SEED.hex(), "ent_seed": BATCH_ENT_SEED.hex(), "params": BATCH,
+            "statements": ["".join(map(str, w.tolist())) for w in statements],
+            "proof_sha256": proofs}
+
+
 def oracle_keystream() -> dict:
     """Keystream windows (hex) from the JAX package's host oracle."""
     import numpy as np
@@ -93,7 +145,13 @@ def main() -> int:
     ap.add_argument("--profiles", nargs="+", default=list(PROFILES), choices=list(PROFILES))
     ap.add_argument("--keystream", action="store_true",
                     help="write the keystream windows instead of the digests")
+    ap.add_argument("--batch", action="store_true",
+                    help="write the batch test's proof digests instead of the digests")
     args = ap.parse_args()
+    if args.batch:
+        GOLDEN_BATCH.write_text(json.dumps(jax_batch_proofs(), indent=1, sort_keys=True) + "\n")
+        print(f"wrote {GOLDEN_BATCH.relative_to(ROOT)}")
+        return 0
     if args.keystream:
         GOLDEN_KEYSTREAM.write_text(json.dumps(oracle_keystream(), indent=1) + "\n")
         print(f"wrote {GOLDEN_KEYSTREAM.relative_to(ROOT)}")
