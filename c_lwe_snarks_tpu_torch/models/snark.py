@@ -16,8 +16,10 @@ zk-SNARK, reference src/snark.c):
   over the s section and (v, h) over the as section; the proof bytes are
   the same.  The evaluations' epilogue and the five smudges are one K10
   launch each.  ``prover_batch`` proves B statements of one circuit with
-  one sweep for all 5B evaluations (K3's many-lane form), each proof the
-  bytes ``prover`` gives.
+  one polynomial stage for all of them (``prover_polys_batch``: t's series
+  inverse made once, v^2 and the division over a statement axis) and one
+  sweep for all 5B evaluations (K3's many-lane form), each proof the bytes
+  ``prover`` gives.
 * verifier: the 5 decrypts, t(s) and v_0(s), the mod-p relations and the
   test-error bound in one launch of K11 on the card, with no host sync up
   to the returned bool tensor.
@@ -45,6 +47,7 @@ from ..ops import digits as dg
 from ..ops import modp, ntt, sampling, verify
 from ..parallel import mesh as pmesh
 from ..parallel.multihost import chunk_bounds
+from ..utils import spans
 from ..utils.params import Params
 from ..utils.spans import span
 from . import lwe as tlwe
@@ -215,6 +218,43 @@ def setup(
 # --------------------------------------------------------------------------
 
 
+def _deltas(ent_key: sampling.PRGKey, offsets: list) -> torch.Tensor:
+    """delta of each statement, the 8 stream bytes at its offset mod p:
+    int64 [B], from a K1 launch a statement (one statement's draw is not
+    copied)."""
+    draws = [sampling.keystream_bytes(ent_key, o, 8) for o in offsets]
+    return modp.bytes_to_u64_mod_p(torch.stack(draws) if len(draws) > 1 else draws[0][None])
+
+
+def _prover_polys(ent_key, offsets, ssp, witnesses, params, mesh, t_degree_lead) -> tuple:
+    """The polynomial stage of ``prover_polys`` for the statements of
+    ``offsets``, witnesses [*lead, m] with lead () for one statement and
+    (B,) for a batch; delta [*lead], w, v and h [*lead, d]."""
+    d, m = params.d, params.m
+    lead = witnesses.shape[:-1]
+    with span("lwe.prover.polys"):
+        spans.statements(len(offsets))
+        t = ssp.t.to(torch.int64)
+        t_degree, t_lead = t_degree_lead or ntt.poly_degree_and_lead(t)
+        delta = _deltas(ent_key, offsets).reshape(lead)
+        if mesh is None:
+            rowsums = [modp.gated_rowsum_mod_p(ssp.v[1:], wit[: m - 1])
+                       for wit in witnesses.reshape(-1, witnesses.shape[-1])]
+            rowsum = torch.stack(rowsums).reshape(*lead, d) if lead else rowsums[0]
+            v0 = ssp.v[0]
+        else:
+            gate = F.pad(witnesses[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
+            rowsum, v0 = pmesh.gated_rowsum_sharded(ssp, gate, mesh), pmesh.row_zero(ssp, mesh)
+        w = modp.addmod_p(modp.mulmod_p(delta[..., None], t), rowsum)
+        v = modp.addmod_p(v0.to(torch.int64), w)
+        num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
+        num[..., 0] = modp.submod_p(num[..., 0], 1)
+        # t is whole on every rank of a mesh, so every rank takes the same branch
+        # of the division and issues the same collectives
+        h = ntt.poly_div_exact_mod_p(num, t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
+        return delta, w, v, h
+
+
 def prover_polys(
     ent_key: sampling.PRGKey,
     ent_offset: int,
@@ -236,25 +276,34 @@ def prover_polys(
     first, unless given (``t_degree_lead``, as ``ntt.poly_degree_and_lead``
     returns them); after that nothing here moves data to the host (on the card:
     K1 for delta, K7 for the row-sum, K6 for v^2 and the division).  t
-    and v_0 are widened to int64 words once each; K7 reads v as it is."""
-    d, m = params.d, params.m
-    with span("lwe.prover.polys"):
-        t = ssp.t.to(torch.int64)
-        t_degree, t_lead = t_degree_lead or ntt.poly_degree_and_lead(t)
-        delta = modp.bytes_to_u64_mod_p(sampling.keystream_bytes(ent_key, ent_offset, 8))
-        if mesh is None:
-            rowsum, v0 = modp.gated_rowsum_mod_p(ssp.v[1:], witness[: m - 1]), ssp.v[0]
-        else:
-            gate = F.pad(witness[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
-            rowsum, v0 = pmesh.gated_rowsum_sharded(ssp, gate, mesh), pmesh.row_zero(ssp, mesh)
-        w = modp.addmod_p(modp.mulmod_p(delta, t), rowsum)
-        v = modp.addmod_p(v0.to(torch.int64), w)
-        num = ntt.poly_mul_mod_p(v, v, mesh=mesh)
-        num[0] = modp.submod_p(num[0], 1)
-        # t is whole on every rank of a mesh, so every rank takes the same branch
-        # of the division and issues the same collectives
-        h = ntt.poly_div_exact_mod_p(num, t, d, den_degree=t_degree, den_lead=t_lead, mesh=mesh)
-        return delta, w, v, h
+    and v_0 are widened to int64 words once each; K7 reads v as it is.
+    The one-statement case of ``prover_polys_batch``, with its launches."""
+    return _prover_polys(ent_key, [ent_offset], ssp, witness, params, mesh, t_degree_lead)
+
+
+def prover_polys_batch(
+    ent_key: sampling.PRGKey,
+    offsets,
+    ssp: tssp.SSP,
+    witnesses: torch.Tensor,
+    params: Params,
+    *,
+    t_degree_lead: tuple[int, int] | None = None,
+) -> tuple:
+    """(delta [B], w, v, h [B, d]) of B statements of one circuit, one an
+    (entropy offset, witness) pair: row j is byte for byte
+    ``prover_polys(ent_key, offsets[j], ssp, witnesses[j], params)``.
+
+    Each step runs once for the batch: one reduction of the B deltas
+    (``_deltas``), w and v as [B, d] ops, v^2 as one K6 product over the B
+    rows, and the division with t's series inverse made once (one Newton
+    launch and the levels above it) and one quotient product; only the
+    deltas' draws (K1) and the row-sums (K7) are a launch a statement.  witnesses: uint8 bits [B, m];
+    t's degree and lead as in ``prover_polys``."""
+    offsets = list(offsets)
+    if not offsets or witnesses.dim() != 2 or witnesses.shape[0] != len(offsets):
+        raise ValueError(f"{len(offsets)} offsets for witnesses {tuple(witnesses.shape)}")
+    return _prover_polys(ent_key, offsets, ssp, witnesses, params, None, t_degree_lead)
 
 
 def onepass_terms(
@@ -413,8 +462,8 @@ def prover_batch(
     ``prover(crs_key, ent_key, offsets[j], crs, ssp, witnesses[j], params)``.
 
     t's degree and leading coefficient are read from the device once for
-    the batch; each statement's (delta, w, v, h) comes from
-    ``prover_polys``; then all 5B evaluations are one keystream sweep
+    the batch; the statements' (delta, w, v, h) come from one call of
+    ``prover_polys_batch``; then all 5B evaluations are one keystream sweep
     (``onepass_terms``, K3's many-lane form: each CRS section reads only its
     own 2B or B lanes, ``onepass_sections``), the b-row MAC and one K10
     fold; each proof is smudged from its own offset (``smudge_proof``).
@@ -427,12 +476,12 @@ def prover_batch(
     b, n = len(offsets), params.n
     with span("lwe.prover_batch"):
         t_info = ntt.poly_degree_and_lead(ssp.t)
-        # through the module's name, so that a wrapper put there sees each call
-        polys = [prover_polys(ent_key, off, ssp, wit, params, t_degree_lead=t_info)
-                 for off, wit in zip(offsets, witnesses)]
+        wits = torch.stack(witnesses)
+        # through the module's name, so that a wrapper put there sees the call
+        delta, w, v, h = prover_polys_batch(ent_key, offsets, ssp, wits, params,
+                                            t_degree_lead=t_info)
         with span("lwe.prover_batch.evals"):
-            delta, w, v, h = (torch.stack(x) for x in zip(*polys))
-            b_all, coeffs = onepass_terms(crs, w, h, v, delta, torch.stack(witnesses), params)
+            b_all, coeffs = onepass_terms(crs, w, h, v, delta, wits, params)
             evals = tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params,
                                          sections=onepass_sections(params, b))
             # lane t B + j -> proof j's evaluation t, each proof's five contiguous

@@ -277,7 +277,8 @@ def _k6_product(a: torch.Tensor, b: torch.Tensor | None, n: int,
     the scale and the CRT.  Residues live in one uint32 scratch [3, rows,
     n], taken from ``ws`` when it is large enough."""
     if b is not None and a.shape[:-1] != b.shape[:-1]:
-        lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+        # numpy's rule: torch.broadcast_shapes imports sympy on its first call (~4-5 s)
+        lead = np.broadcast_shapes(a.shape[:-1], b.shape[:-1])
         a, b = a.expand(*lead, a.shape[-1]), b.expand(*lead, b.shape[-1])
     lead = a.shape[:-1]
     a2 = _rows(a)
@@ -669,18 +670,21 @@ def _div_rev_core(
     num: torch.Tensor, den: torch.Tensor, ql: int, mesh=None, min_shard_n: int = 4096,
     seed: int | None = None,
 ) -> torch.Tensor:
-    """Reversed-series exact division; den's last formal entry nonzero
-    (its inverse mod p is ``seed``, if given).  On a CUDA tensor without a
-    mesh the series' levels and the quotient's product share one K6
-    workspace."""
+    """Reversed-series exact division of each row of num [..., ln] by the
+    1-D den; den's last formal entry nonzero (its inverse mod p is
+    ``seed``, if given).  The series inverse is den's alone, made once for
+    every row.  On a CUDA tensor without a mesh the series' levels and the
+    quotients' product share one K6 workspace."""
     nr, dr = torch.flip(num, (-1,))[..., :ql], torch.flip(den, (-1,))
     if _plain(num) or _split_mesh(mesh):
         inv = poly_inv_series_mod_p(dr, ql, seed=seed, mesh=mesh, min_shard_n=min_shard_n)
         qr = poly_mul_mod_p(nr, inv, out_len=ql, mesh=mesh, min_shard_n=min_shard_n)
         return torch.flip(qr, (-1,))
     n = _next_pow2(max(2 * ql - 1, 2))
+    rows = nr.numel() // ql  # the quotients' product takes 2 rows a numerator
     above = [ln for _, ln in _inv_levels(ql) if ln > NEWTON_N]
-    ws = torch.empty(max([6 * n] + [11 * ln for ln in above]), dtype=torch.int32, device=num.device)
+    ws = torch.empty(max([6 * rows * n] + [11 * ln for ln in above]), dtype=torch.int32,
+                     device=num.device)
     inv = poly_inv_series_mod_p(dr, ql, seed=seed, ws=ws)
     return torch.flip(_k6_product(nr, inv, n, ws)[..., :ql], (-1,))
 
@@ -697,10 +701,12 @@ def poly_div_exact_mod_p(
     ``den_degree`` (den's true degree) and ``den_lead`` (its coefficient)
     are read from the device here unless the caller gives them; given
     both, the division moves nothing from the device to the host.  With
-    ``mesh`` the large products run on the 4-step transform.  num and den:
-    int64 or uint32 words; the quotient is int64.
+    ``mesh`` the large products of a 1-D num run on the 4-step transform.
+    num: [..., ln], each row divided by the one den [ld] (the series
+    inverse made once, the quotients one product over the rows); num and
+    den: int64 or uint32 words; the quotient is int64 [..., quot_len].
     """
-    assert num.dim() == 1 and den.dim() == 1, "division is single-polynomial"
+    assert den.dim() == 1, "one divisor for every row of num"
     num, den = modp.words(num), modp.words(den)
     ln, ld = num.shape[-1], den.shape[-1]
     if den_degree is None:
@@ -713,6 +719,6 @@ def poly_div_exact_mod_p(
     if shift == 0:
         return _fit_len(_div_rev_core(num, den, max(ln - ld + 1, 1), mesh, min_shard_n, seed),
                         quot_len)
-    num2 = torch.roll(torch.nn.functional.pad(num, (0, ld - 1)), shift)
-    den2 = torch.roll(den, shift)
+    num2 = torch.roll(torch.nn.functional.pad(num, (0, ld - 1)), shift, dims=-1)
+    den2 = torch.roll(den, shift, dims=-1)
     return _fit_len(_div_rev_core(num2, den2, ln, mesh, min_shard_n, seed), quot_len)

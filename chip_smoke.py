@@ -1567,7 +1567,11 @@ def phase_batch(run, label: str) -> dict:
     reset just before: each proof is ``snark.prover``'s bytes for its
     offset and witness, the first is the release run's, the satisfying
     statement's verifies, and the batch launches K3's many-lane form once,
-    its form of 8 lanes never, K10 once and once a proof's smudges."""
+    its form of 8 lanes never, K10 once and once a proof's smudges.  Its
+    polynomial stage (``prover_polys_batch``) is each statement's
+    ``prover_polys`` row for row in one statement's K6 launches (one Newton
+    launch in the trace); its ms a batch, by CUDA events and device-side, is
+    printed beside the sweep's."""
     import torch
 
     from c_lwe_snarks_tpu_torch.models import snark as tsnark
@@ -1611,7 +1615,58 @@ def phase_batch(run, label: str) -> dict:
                "carry_fold": 1 + BATCH * (one["carry_fold"] - 1)}
     for name, want_n in planned.items():
         check(launches[name] == want_n, f"batch: {launches[name]} launches of {name}, planned {want_n}")
+    phase_batch_stage(crs_key, ent_key, offsets, run, wits, one, label)
     return launches
+
+
+def phase_batch_stage(crs_key, ent_key, offsets, run, wits, one: dict, label: str) -> None:
+    """``prover_polys_batch`` over the batch's statements against their
+    ``prover_polys``, its launches against one statement's (``one``), and
+    its ms by CUDA events and device-side beside the batch's sweep (K3)."""
+    import torch
+
+    from c_lwe_snarks_tpu_torch.models import snark as tsnark
+    from c_lwe_snarks_tpu_torch.ops import ntt
+    from c_lwe_snarks_tpu_torch.utils.params import release
+
+    P = release()
+    t_info = ntt.poly_degree_and_lead(run.ssp.t)
+    stmts = torch.stack(wits)
+
+    def stage():
+        return tsnark.prover_polys_batch(ent_key, offsets, run.ssp, stmts, P, t_degree_lead=t_info)
+
+    def singles():
+        return [tsnark.prover_polys(ent_key, off, run.ssp, w, P, t_degree_lead=t_info)
+                for off, w in zip(offsets, wits)]
+
+    want, singles_ms = timed(singles)
+    counters = reset_counters()
+    got, stage_ms = timed(stage)
+    launches = read_counters(counters)
+    same = sum(all(torch.equal(g[j], w) for g, w in zip(got, want[j])) for j in range(BATCH))
+    # the device's items: kernels and copies, not the port's spans, which the trace
+    # also lists with a device time
+    items = {k: x for k, x in device_times(stage)[0].items() if not k.startswith("lwe.")}
+    dev_ms = {k: sum(us for name, (us, _) in items.items() if k in name) / 1e3
+              for k in ("ntt_", "gated_rowsum", "keystream")}
+    newton = sum(c for name, (_, c) in items.items() if "ntt_newton" in name)
+    stage_dev = sum(us for us, _ in items.values()) / 1e3
+    sweep_items, _ = device_times(lambda: tsnark.prover_batch(
+        crs_key, ent_key, offsets, run.crs, run.ssp, wits, P))
+    sweep_dev = sum(us for name, (us, _) in sweep_items.items() if "eval_mac" in name) / 1e3
+    print(f"phase batch: prover_polys_batch over {BATCH} statements {stage_ms:.3f} ms (CUDA events), "
+          f"device-side {stage_dev:.3f} ms (K6 {dev_ms['ntt_']:.3f}, K7 {dev_ms['gated_rowsum']:.3f}, "
+          f"K1 {dev_ms['keystream']:.3f}); {BATCH} prover_polys {singles_ms:.3f} ms; the batch's "
+          f"sweep (K3) device-side {sweep_dev:.3f} ms [{label}]; {same} of {BATCH} rows equal; "
+          f"launches: K6 {launches['ntt']} (one statement's {one['ntt']}), Newton {newton} traced, "
+          f"K7 {launches['gated_rowsum_p']}, K1 {launches['keystream_words']}")
+    check(same == BATCH, "batch: a row of prover_polys_batch differs from prover_polys")
+    check(launches["ntt"] == one["ntt"] and newton == 1,
+          f"batch: the stage made {launches['ntt']} K6 launches ({newton} Newton), one "
+          f"statement's {one['ntt']}")
+    check(launches["gated_rowsum_p"] == BATCH and launches["keystream_words"] == BATCH,
+          "batch: the stage's K7 or K1 launches are not one a statement")
 
 
 def phase_d16(label: str) -> dict:

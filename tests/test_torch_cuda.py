@@ -991,6 +991,60 @@ def test_prover_batch_at_release_equals_prover(release_circuit):
 
 
 @pytest.mark.gpu
+def test_prover_polys_batch_at_release_equals_prover_polys(release_circuit):
+    """Ten statements' polynomial stage at release in one
+    ``prover_polys_batch``: row j is ``prover_polys`` of statement j; with t's
+    degree given it makes no host sync, a K1 and a K7 launch a
+    statement and one statement's 31 K6 launches (t's series inverse once).
+    The stage's and the ten single stages' walls are printed."""
+    import time
+
+    P, ssp, _, _, _ = release_circuit
+    dev = torch.device("cuda")
+    ent_key = sampling.PRGKey(bytes(range(40, 80)), dev)
+    off0 = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
+    offsets = [off0 + i * tsnark.prover_entropy_bytes(P) for i in range(10)]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    wits = torch.randint(0, 2, (10, P.m), generator=gen, device=dev, dtype=torch.uint8)
+    wits[1] = 0
+    wits[2] = 1
+    t_info = ntt.poly_degree_and_lead(ssp.t)
+
+    def singles():
+        return [tsnark.prover_polys(ent_key, off, ssp, w, P, t_degree_lead=t_info)
+                for off, w in zip(offsets, wits)]
+
+    def batch():
+        return tsnark.prover_polys_batch(ent_key, offsets, ssp, wits, P, t_degree_lead=t_info)
+
+    want, got = singles(), batch()  # warm
+    for j in range(10):
+        for g, w in zip(got, want[j]):
+            _eq(g[j], w)
+    walls = {}
+    for name, run in (("batch", batch), ("singles", singles)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    print(f"prover_polys_batch at release, 10 statements: {walls['batch'] * 1e3:.3f} ms; ten "
+          f"prover_polys {walls['singles'] * 1e3:.3f} ms")
+    before = (dict(aes.LAUNCHES), dict(modp.LAUNCHES), ntt.LAUNCHES["ntt"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = batch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert aes.LAUNCHES["keystream_words"] - before[0]["keystream_words"] == 10
+    assert modp.LAUNCHES["gated_rowsum_p"] - before[1]["gated_rowsum_p"] == 10
+    assert ntt.LAUNCHES["ntt"] - before[2] == 31
+    for g, x in zip(again, got):
+        _eq(g, x)
+
+
+@pytest.mark.gpu
 def test_staged_artifacts_are_the_cpu_paths_bytes(release_circuit):
     """At release, each writer on the card gives the bytes the same writer
     gives on the CPU from the same digits; each reader on the card gives the

@@ -578,6 +578,61 @@ def test_prover_polys_matches_jax(request, impl):
         _eq(g, w)
 
 
+def test_prover_polys_batch_matches_jax_on_k6(k6):
+    """The batched stage on the kernel path: row j equals ``prover_polys``
+    of statement j (row 0 the JAX prover's), and the batch of three issues
+    the K6 launches of one statement: one v^2, one series inverse, one
+    quotient product."""
+    wits, t, v_rows, *want = _jax_prover_polys()
+    ssp = tssp.SSP(t=torch.from_numpy(t), v=torch.from_numpy(v_rows))
+    key = tsam.PRGKey(ENT_SEED, "cpu")
+    w0 = torch.from_numpy(wits)
+    stmts = torch.stack([w0, torch.ones_like(w0), 1 - w0])
+    offs = [PROVE_OFFSET, PROVE_OFFSET + 413, PROVE_OFFSET - 77]
+    before = ntt.LAUNCHES["ntt"]
+    single = [tsnark.prover_polys(key, o, ssp, w, TINY) for o, w in zip(offs, stmts)]
+    per_statement = (ntt.LAUNCHES["ntt"] - before) // 3
+    before = ntt.LAUNCHES["ntt"]
+    got = tsnark.prover_polys_batch(key, offs, ssp, stmts, TINY)
+    assert ntt.LAUNCHES["ntt"] - before == per_statement > 0
+    for j in range(3):
+        for g, w in zip(got, single[j]):
+            _eq(g[j], w)
+    for g, w in zip(got, want):
+        _eq(g[0], w)
+
+
+@pytest.mark.parametrize("zero_top", [0, 3])
+def test_batched_division_on_k6(k6, monkeypatch, zero_top):
+    """num [B, ln] over one den on the kernel path: each row the 1-D
+    division's quotient, in the launches of one division; the quotients'
+    product broadcasts the one series inverse without
+    ``torch.broadcast_shapes``, whose first call imports sympy (seconds)."""
+    def no_sympy(*shapes):
+        raise AssertionError("torch.broadcast_shapes on the kernel path")
+
+    monkeypatch.setattr(torch, "broadcast_shapes", no_sympy)
+    rng = np.random.default_rng(50 + zero_top)
+    d, b = 40, 5
+    t = _rand(rng, d)
+    t[0] = max(t[0], 1)
+    if zero_top:
+        t[-zero_top:] = 0
+    quot = _rand(rng, (b, d))
+    tt = torch.from_numpy(t)
+    num = ntt._poly_mul_plain(torch.from_numpy(np.pad(quot, ((0, 0), (0, 128 - d)))),
+                              torch.from_numpy(np.pad(t, (0, 128 - d))))[:, : 2 * d - 1]
+    degree, lead = ntt.poly_degree_and_lead(tt)
+    before = ntt.LAUNCHES["ntt"]
+    one = ntt.poly_div_exact_mod_p(num[0], tt, d, den_degree=degree, den_lead=lead)
+    launches = ntt.LAUNCHES["ntt"] - before
+    before = ntt.LAUNCHES["ntt"]
+    got = ntt.poly_div_exact_mod_p(num, tt, d, den_degree=degree, den_lead=lead)
+    assert ntt.LAUNCHES["ntt"] - before == launches
+    _eq(got, quot)
+    _eq(got[0], one)
+
+
 INV_LEN = ntt.NEWTON_N // 4 + 1  # every level in the Newton launch, the top one at n = NEWTON_N
 
 
@@ -672,3 +727,23 @@ def test_release_level_plan(monkeypatch, newton_n, launches):
     assert ntt.LAUNCHES["ntt"] - before == launches == 1 + 6 * (len(levels) - low) + 3 + 3
     product = ["cls_ntt_pass", "cls_ntt_rows", "cls_ntt_pass"]
     assert names == product + ["cls_ntt_newton", "cls_ntt_levels"] + product
+
+
+def test_release_level_plan_for_a_batch(monkeypatch):
+    """Ten statements' v^2 and division at release are the 31 launches of
+    one statement's, in the same order: t's series inverse once, v^2 and
+    the quotient's product each one product over the ten rows."""
+    d, b = 1 << 15, 10
+    names = []
+    monkeypatch.setattr(_build, "launch", lambda name, *args: names.append((name, args)))
+    monkeypatch.setattr(ntt, "_plain", lambda x: False)
+    v = torch.ones(b, d, dtype=torch.int64)
+    before = ntt.LAUNCHES["ntt"]
+    num = ntt.poly_mul_mod_p(v, v)
+    ntt.poly_div_exact_mod_p(num, v[0], d, den_degree=d - 1, den_lead=1)
+    assert ntt.LAUNCHES["ntt"] - before == 31
+    product = ["cls_ntt_pass", "cls_ntt_rows", "cls_ntt_pass"]
+    assert [n for n, _ in names] == product + ["cls_ntt_newton", "cls_ntt_levels"] + product
+    newton, levels = (args for n, args in names if n in ("cls_ntt_newton", "cls_ntt_levels"))
+    assert newton[4] == levels[5] == 1  # the series inverse: one row
+    assert names[0][1][4] == b and names[-3][1][4] == 2 * b  # v^2: b rows; the quotients: 2b

@@ -1,5 +1,7 @@
 """``snark.prover_batch`` on the CPU: B statements of one circuit proved with
-one sweep for all 5B evaluations, each proof byte for byte ``snark.prover``'s
+one polynomial stage (``snark.prover_polys_batch``, each row
+``snark.prover_polys``'s) and one sweep for all 5B evaluations, each proof
+byte for byte ``snark.prover``'s
 and the JAX package's (tests/golden/torch_port_batch_proofs.json, written
 by tools/make_torch_golden.py --batch, since the JAX prover takes minutes an
 offset to compile on the CPU); and K3's many-lane wrapper (``eval_fused.eval_mac_planes``
@@ -9,6 +11,7 @@ holds against the plain version.
 Small shapes: d = 64, m = 16 at n = 32, so a proof takes ~0.1 s on the CPU.
 """
 
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -18,7 +21,7 @@ import torch
 
 from c_lwe_snarks_tpu_torch.models import snark, ssp
 from c_lwe_snarks_tpu_torch.ops import eval_fused as tef
-from c_lwe_snarks_tpu_torch.ops import sampling
+from c_lwe_snarks_tpu_torch.ops import modp, ntt, sampling
 from c_lwe_snarks_tpu_torch.utils import serial, spans
 from c_lwe_snarks_tpu_torch.utils.params import Params
 
@@ -86,21 +89,127 @@ def test_prover_batch_equals_prover(circuit, single, requests):
 
 def test_prover_batch_spans_and_syncs(circuit):
     """One outermost span for the batch, t's degree read once, one
-    ``lwe.prover.polys`` and one ``lwe.prover.smudge`` a statement around the
-    shared sweep; no proofs for no requests; offsets and witnesses paired."""
+    ``lwe.prover.polys`` for the batch before the shared sweep and one
+    ``lwe.prover.smudge`` a statement after it; no proofs for no requests;
+    offsets and witnesses paired."""
     crs_key, ent_key, crs, _, inst, wits = circuit
     spans.reset()
     with spans.recording():
         snark.prover_batch(crs_key, ent_key, [OFF_PROVE, OFF_PROVE + STEP], crs, inst, wits[:2], P)
     names = [r.name for r in spans.records()]
-    assert names == ["lwe.prover_batch", "lwe.prover.polys", "lwe.prover.polys",
-                     "lwe.prover_batch.evals", "lwe.prover.smudge", "lwe.prover.smudge"]
-    assert [r.parent for r in spans.records()] == [-1, 0, 0, 0, 0, 0]
+    assert names == ["lwe.prover_batch", "lwe.prover.polys", "lwe.prover_batch.evals",
+                     "lwe.prover.smudge", "lwe.prover.smudge"]
+    assert [r.parent for r in spans.records()] == [-1, 0, 0, 0, 0]
     assert spans.sync_sites() == {"ntt.poly_degree_and_lead": 1}
     spans.reset()
     assert snark.prover_batch(crs_key, ent_key, [], crs, inst, [], P) == []
     with pytest.raises(ValueError, match="offsets"):
         snark.prover_batch(crs_key, ent_key, [OFF_PROVE], crs, inst, wits[:2], P)
+
+
+def _statements(wits, b):
+    """b witnesses: the circuit's three statements, all-zero and all-one bits."""
+    pool = [wits[0], torch.zeros_like(wits[0]), wits[1], torch.ones_like(wits[0]), wits[2]]
+    return [pool[j % len(pool)] for j in range(b)]
+
+
+@pytest.mark.parametrize("b,zero_top", [
+    (1, 0),
+    (2, 0),
+    (10, 0),
+    (16, 0),
+    (10, 2),   # t's last two formal coefficients 0: the division's shift branch
+], ids=["B1", "B2", "B10", "B16", "B10_shift"])
+def test_prover_polys_batch_equals_prover_polys(circuit, b, zero_top):
+    """Row j of the batched stage is byte for byte ``prover_polys`` of
+    statement j, offsets out of order and not block-aligned, witnesses
+    random, all 0 and all 1; t's degree and lead given or read."""
+    _, ent_key, _, _, inst, wits = circuit
+    if zero_top:
+        t = inst.t.clone()
+        t[-zero_top:] = 0
+        inst = dataclasses.replace(inst, t=t)
+        assert ntt.poly_degree_and_lead(t)[0] < P.d - zero_top
+    offs = [OFF_PROVE + (7 * j % b) * STEP for j in range(b)]
+    stmts = _statements(wits, b)
+    for t_info in (None, ntt.poly_degree_and_lead(inst.t)):
+        got = snark.prover_polys_batch(ent_key, offs, inst, torch.stack(stmts), P,
+                                       t_degree_lead=t_info)
+        assert [tuple(x.shape) for x in got] == [(b,), (b, P.d), (b, P.d), (b, P.d)]
+        for j, (off, wit) in enumerate(zip(offs, stmts)):
+            want = snark.prover_polys(ent_key, off, inst, wit, P)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype == torch.int64 and torch.equal(g[j], w)
+    # a count of witnesses that differs from the offsets' is refused
+    with pytest.raises(ValueError, match="offsets"):
+        snark.prover_polys_batch(ent_key, offs + [OFF_PROVE], inst, torch.stack(stmts), P)
+
+
+@pytest.mark.parametrize("b,zero_top", [(1, 0), (4, 0), (4, 3)], ids=["B1", "B4", "B4_shift"])
+def test_batched_division_equals_single_divisions(b, zero_top):
+    """num [B, ln] over a 1-D den: row j is the 1-D division of num[j] (the
+    exact quotient), in both branches (zero_top > 0: the shift)."""
+    g = torch.Generator().manual_seed(40 + zero_top)
+    d = 24
+    t = torch.randint(1, modp.P, (d,), generator=g)
+    if zero_top:
+        t[-zero_top:] = 0
+    quot = torch.randint(0, modp.P, (b, d), generator=g)
+    num = ntt.poly_mul_mod_p(quot, t)  # [b, 2d - 1]
+    degree, lead = ntt.poly_degree_and_lead(t)
+    got = ntt.poly_div_exact_mod_p(num, t, d, den_degree=degree, den_lead=lead)
+    assert got.shape == (b, d) and torch.equal(got, quot)
+    for j in range(b):
+        assert torch.equal(ntt.poly_div_exact_mod_p(num[j], t, d), got[j])
+
+
+@pytest.mark.parametrize("fault", ["statement0", "swapped"])
+def test_planted_faults_in_the_batched_stage_change_the_proofs(circuit, single, monkeypatch, fault):
+    """A batched stage that takes statement 0's witness for every row, or
+    swaps two rows' witnesses, gives proofs that differ from ``snark.prover``'s
+    for the statements it wronged: ``prover_batch`` calls the stage through
+    the module's name, where such a fault is planted."""
+    crs_key, ent_key, crs, _, inst, wits = circuit
+    original = snark.prover_polys_batch
+
+    def planted(ent_key, offsets, ssp, witnesses, params, **kw):
+        bad = witnesses.clone()
+        if fault == "statement0":
+            bad[:] = witnesses[0]
+        else:
+            bad[[0, 1]] = witnesses[[1, 0]]
+        return original(ent_key, offsets, ssp, bad, params, **kw)
+
+    monkeypatch.setattr(snark, "prover_polys_batch", planted)
+    requests = [(0, 0), (1, 1), (2, 2)]
+    offsets = [OFF_PROVE + i * STEP for i, _ in requests]
+    proofs = snark.prover_batch(crs_key, ent_key, offsets, crs, inst,
+                                [wits[j] for _, j in requests], P)
+    same = [serial.proof_to_bytes(pi, P) == single(off, j)
+            for off, (_, j), pi in zip(offsets, requests, proofs)]
+    assert same == ([True, False, False] if fault == "statement0" else [False, False, True])
+
+
+def test_statements_counter_reads_b_a_batch_and_1_a_proof(circuit):
+    """``spans.statements`` tallies the statements of each polynomial stage:
+    B in a batch's one ``lwe.prover.polys``, 1 in a proof's; it counts only
+    while tracing is on and adds nothing to the launches."""
+    crs_key, ent_key, crs, _, inst, wits = circuit
+    offsets = [OFF_PROVE + i * STEP for i in range(3)]
+    spans.reset()
+    snark.prover_batch(crs_key, ent_key, offsets, crs, inst, wits, P)
+    assert spans.records() == []
+    with spans.recording():
+        snark.prover_batch(crs_key, ent_key, offsets, crs, inst, wits, P)
+        snark.prover(crs_key, ent_key, OFF_PROVE, crs, inst, wits[0], P)
+    polys = [r for r in spans.records() if r.name == "lwe.prover.polys"]
+    assert [r.statements for r in polys] == [3, 1]
+    s = spans.summary()
+    assert s["lwe.prover.polys"]["calls"] == 2 and s["lwe.prover.polys"]["statements"] == 4
+    assert (s["lwe.prover_batch"]["statements"], s["lwe.prover"]["statements"]) == (3, 1)
+    assert s["lwe.prover_batch.evals"]["statements"] == 0
+    assert all("statements" not in c for c in spans._launch_counters)
+    spans.reset()
 
 
 def test_onepass_terms_lay_out_lanes_by_kind(circuit):
