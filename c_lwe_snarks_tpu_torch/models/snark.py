@@ -10,16 +10,14 @@ zk-SNARK, reference src/snark.c):
   the four CRS sections are back to back in the stream.
 * prover: w, v = v_0 + w and h = (v^2 - 1)/t on the CRT-NTT engine, then
   all five evaluations in ONE fused keystream->MAC sweep (K3) over the
-  contiguous CRS term range (the one-pass form), then smudging.  Given a
-  ``tile`` it goes stage by stage instead, as the reference does: import
-  Enc(beta t), evaluate the witness bits over the bv section, then (w, h)
-  over the s section and (v, h) over the as section; the proof bytes are
-  the same.  The evaluations' epilogue and the five smudges are one K10
-  launch each.  ``prover_batch`` proves B statements of one circuit with
-  one polynomial stage for all of them (``prover_polys_batch``: t's series
-  inverse made once, v^2 and the division over a statement axis) and one
-  sweep for all 5B evaluations (K3's many-lane form), each proof the bytes
-  ``prover`` gives.
+  contiguous CRS term range (the one-pass form), then smudging.  The
+  evaluations' epilogue and the five smudges are one K10 launch each.
+  ``prover_batch`` proves B statements of one circuit with one polynomial
+  stage for all of them (``prover_polys_batch``: t's series inverse made
+  once, v^2 and the division over a statement axis) and one sweep for all
+  5B evaluations (K3's many-lane form), each proof the bytes ``prover``
+  gives: both run the same evaluation-and-smudge body over the statement
+  axis (``_evaluate_and_smudge``).
 * verifier: the 5 decrypts, t(s) and v_0(s), the mod-p relations and the
   test-error bound in one launch of K11 on the card, with no host sync up
   to the returned bool tensor.
@@ -47,7 +45,6 @@ from ..ops import digits as dg
 from ..ops import modp, ntt, sampling, verify
 from ..parallel import mesh as pmesh
 from ..parallel.multihost import chunk_bounds
-from ..utils import spans
 from ..utils.params import Params
 from ..utils.spans import span
 from . import lwe as tlwe
@@ -168,19 +165,16 @@ def setup(
     ssp: tssp.SSP,
     params: Params,
     *,
-    tile: int | None = None,
     mesh=None,
 ) -> tuple[CRS, VRS]:
     """CRS/VRS generation (src/snark.c:57-115).
 
-    With ``tile=None`` the 2d+m encryptions are one fused launch (K4);
-    given a tile they take the two-stage scan path of
-    ``lwe.encrypt_section`` in tiles of that many ciphertexts.  With
-    ``mesh`` (ssp.v: the rank's rows, ``parallel.mesh.random_ssp_sharded``)
-    each rank evaluates its rows of v at s and draws and encrypts its
-    chunk of the terms; every rank returns the whole CRS."""
+    The 2d+m encryptions are ``lwe.encrypt_section``'s: one fused launch
+    (K4) within its signed-sum bound, the scan path past it.  With ``mesh``
+    (ssp.v: the rank's rows, ``parallel.mesh.random_ssp_sharded``) each
+    rank evaluates its rows of v at s and draws and encrypts its chunk of
+    the terms; every rank returns the whole CRS."""
     d, m = params.d, params.m
-    impl = "auto" if tile is None else "scan"
     n_enc = 2 * d + 1 + (m - 1)
     with span("lwe.setup"):
         if mesh is None:
@@ -202,11 +196,10 @@ def setup(
         with span("lwe.setup.encrypt"):
             errs = setup_errs(ent_key, ent_offset, lo, hi, params)
             if mesh is None:
-                rows = tlwe.encrypt_section(
-                    crs_key, params.ctr_s, sk, msgs, errs, params, tile=tile, impl=impl)
+                rows = tlwe.encrypt_section(crs_key, params.ctr_s, sk, msgs, errs, params)
             else:
                 rows = pmesh.encrypt_section_sharded(
-                    crs_key, params.ctr_s, sk, msgs, errs, params, mesh, tile=tile, impl=impl)
+                    crs_key, params.ctr_s, sk, msgs, errs, params, mesh)
         crs = CRS(seed=crs_key.seed, b_s=rows[:d], b_as=rows[d : 2 * d],
                   b_t=rows[2 * d], b_v=rows[2 * d + 1 :])
         stored = scalars.to(torch.uint32)  # the VRS holds them as the JAX package does
@@ -226,16 +219,15 @@ def _deltas(ent_key: sampling.PRGKey, offsets: list) -> torch.Tensor:
     return modp.bytes_to_u64_mod_p(torch.stack(draws) if len(draws) > 1 else draws[0][None])
 
 
-def _prover_polys(ent_key, offsets, ssp, witnesses, params, mesh, t_degree_lead) -> tuple:
+def _prover_polys(ent_key, offsets, ssp, witnesses, params, mesh) -> tuple:
     """The polynomial stage of ``prover_polys`` for the statements of
     ``offsets``, witnesses [*lead, m] with lead () for one statement and
     (B,) for a batch; delta [*lead], w, v and h [*lead, d]."""
     d, m = params.d, params.m
     lead = witnesses.shape[:-1]
     with span("lwe.prover.polys"):
-        spans.statements(len(offsets))
         t = ssp.t.to(torch.int64)
-        t_degree, t_lead = t_degree_lead or ntt.poly_degree_and_lead(t)
+        t_degree, t_lead = ntt.poly_degree_and_lead(t)
         delta = _deltas(ent_key, offsets).reshape(lead)
         if mesh is None:
             rowsums = [modp.gated_rowsum_mod_p(ssp.v[1:], wit[: m - 1])
@@ -263,7 +255,6 @@ def prover_polys(
     params: Params,
     *,
     mesh=None,
-    t_degree_lead: tuple[int, int] | None = None,
 ) -> tuple:
     """(delta, w, v, h) of the prover: w = delta * t + sum_{witness bit
     i-1} v_i, v = v_0 + w and h = (v^2 - 1) / t on the CRT-NTT engine.
@@ -273,12 +264,11 @@ def prover_polys(
     NTT's large products run on the 4-step transform.
 
     t's true degree and leading coefficient are read from the device once,
-    first, unless given (``t_degree_lead``, as ``ntt.poly_degree_and_lead``
-    returns them); after that nothing here moves data to the host (on the card:
+    first; after that nothing here moves data to the host (on the card:
     K1 for delta, K7 for the row-sum, K6 for v^2 and the division).  t
     and v_0 are widened to int64 words once each; K7 reads v as it is.
     The one-statement case of ``prover_polys_batch``, with its launches."""
-    return _prover_polys(ent_key, [ent_offset], ssp, witness, params, mesh, t_degree_lead)
+    return _prover_polys(ent_key, [ent_offset], ssp, witness, params, mesh)
 
 
 def prover_polys_batch(
@@ -287,23 +277,21 @@ def prover_polys_batch(
     ssp: tssp.SSP,
     witnesses: torch.Tensor,
     params: Params,
-    *,
-    t_degree_lead: tuple[int, int] | None = None,
 ) -> tuple:
     """(delta [B], w, v, h [B, d]) of B statements of one circuit, one an
     (entropy offset, witness) pair: row j is byte for byte
     ``prover_polys(ent_key, offsets[j], ssp, witnesses[j], params)``.
 
-    Each step runs once for the batch: one reduction of the B deltas
-    (``_deltas``), w and v as [B, d] ops, v^2 as one K6 product over the B
-    rows, and the division with t's series inverse made once (one Newton
-    launch and the levels above it) and one quotient product; only the
-    deltas' draws (K1) and the row-sums (K7) are a launch a statement.  witnesses: uint8 bits [B, m];
-    t's degree and lead as in ``prover_polys``."""
+    Each step runs once for the batch: t's degree and lead read once (as in
+    ``prover_polys``), one reduction of the B deltas (``_deltas``), w and v
+    as [B, d] ops, v^2 as one K6 product over the B rows, and the division
+    with t's series inverse made once (one Newton launch and the levels
+    above it) and one quotient product; only the deltas' draws (K1) and the
+    row-sums (K7) are a launch a statement.  witnesses: uint8 bits [B, m]."""
     offsets = list(offsets)
     if not offsets or witnesses.dim() != 2 or witnesses.shape[0] != len(offsets):
         raise ValueError(f"{len(offsets)} offsets for witnesses {tuple(witnesses.shape)}")
-    return _prover_polys(ent_key, offsets, ssp, witnesses, params, None, t_degree_lead)
+    return _prover_polys(ent_key, offsets, ssp, witnesses, params, None)
 
 
 def onepass_terms(
@@ -346,75 +334,43 @@ def onepass_sections(params: Params, batch: int = 1) -> tuple:
     return ((0, d, 0, 2 * b), (d, 2 * d, 2 * b, 4 * b), (2 * d, 2 * d + m, 4 * b, 5 * b))
 
 
-def _prover_evals_onepass(
+def _evaluate_and_smudge(
     crs_key: sampling.PRGKey,
+    ent_key: sampling.PRGKey,
+    offsets: list,
     crs: CRS,
-    w: torch.Tensor,
-    h: torch.Tensor,
-    v: torch.Tensor,
     delta: torch.Tensor,
-    witness: torch.Tensor,
+    w: torch.Tensor,
+    v: torch.Tensor,
+    h: torch.Tensor,
+    witnesses: torch.Tensor,
     params: Params,
     mesh=None,
-) -> torch.Tensor:
-    """All five prover evaluations in ONE fused kernel sweep
-    (``onepass_terms``); with ``mesh``, one K3 launch a rank over its
-    chunk of the terms and one ``all_reduce``.  Returns uint8 [5, n+1, 88]:
-    v_w, h, hat_v, hat_h, b_w."""
-    b_all, coeffs = onepass_terms(crs, w, h, v, delta, witness, params)
-    if mesh is None:
-        return tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params)
-    return pmesh.eval_poly_multi_sharded(crs_key, params.ctr_s, b_all, coeffs, params, mesh)
-
-
-def _pad_multiple(x: torch.Tensor, mult: int) -> torch.Tensor:
-    """Zero-pad axis 0 to a multiple of mult.
-
-    Padding the b_w evaluation with zero coefficients adds exact zeros to
-    the MAC; the dummy terms read keystream past the section end, which
-    no real term consumes."""
-    extra = -x.shape[0] % mult
-    return x if extra == 0 else F.pad(x, (0, 0) * (x.dim() - 1) + (0, extra))
-
-
-def _prover_evals_stagewise(
-    crs_key: sampling.PRGKey,
-    crs: CRS,
-    w: torch.Tensor,
-    h: torch.Tensor,
-    v: torch.Tensor,
-    delta: torch.Tensor,
-    witness: torch.Tensor,
-    params: Params,
-    tile: int,
-    mesh=None,
-) -> tuple:
-    """The five prover evaluations section by section (src/snark.c:140-183).
-
-    b_w = delta * ct(beta t) + sum_{witness} ct(beta v_i): Enc(beta t) is
-    imported at CTR_BT, and the masked sum is a homomorphic evaluation
-    with 0/1 coefficients over the bv section, padded to whole tiles (or
-    to an even count when the section is shorter than a tile).  Then two
-    fused two-polynomial evaluations: (w, h) over the s section and
-    (v, h) over the as section.  With ``mesh`` each evaluation splits its
-    terms over the ranks.  Returns (v_w, h, hat_v, hat_h, b_w).
-    """
-    m = params.m
-
-    def evaluate(off, b_rows, coeffs):
+) -> list[Proof]:
+    """The proofs of the B statements of ``offsets`` from their polynomial
+    stage (delta [B], w, v, h [B, d], witnesses [B, m], or one statement's
+    without the batch axis): all 5B evaluations in ONE keystream sweep
+    (``onepass_terms``; K3's form of 8 lanes at B = 1, its many-lane form
+    past it, each CRS section reading only its own lanes,
+    ``onepass_sections``), the b-row MAC and one K10 fold, then each proof
+    smudged from its own offset (``smudge_proof``).  With ``mesh`` (B = 1
+    only), one K3 launch a rank over its chunk of the terms and one
+    ``all_reduce``."""
+    b, n = len(offsets), params.n
+    if mesh is not None and b != 1:
+        raise ValueError(f"the sharded sweep proves one statement, got {b}")
+    with span("lwe.prover.evals"):
+        b_all, coeffs = onepass_terms(crs, w, h, v, delta, witnesses, params)
         if mesh is None:
-            return tlwe.eval_poly_multi(crs_key, off, b_rows, coeffs, params, tile=tile)
-        return pmesh.eval_poly_multi_sharded(crs_key, off, b_rows, coeffs, params, mesh, tile=tile)
-
-    ct_bt = tlwe.ct_import(crs_key, params.ctr_bt, crs.b_t[None], params)[0]
-    bw_mult = tile if (m - 1) >= tile else 2
-    bw_coeffs = _pad_multiple(witness[: m - 1].to(torch.int64), bw_mult)
-    bw_rows = _pad_multiple(crs.b_v, bw_mult)
-    b_w = tlwe.ct_add(
-        tlwe.ct_mul_ui(ct_bt, delta), evaluate(params.ctr_bv, bw_rows, bw_coeffs[None])[0])
-    ev_s = evaluate(params.ctr_s, crs.b_s, torch.stack([w, h]))
-    ev_as = evaluate(params.ctr_as, crs.b_as, torch.stack([v, h]))
-    return ev_s[0], ev_s[1], ev_as[0], ev_as[1], b_w
+            evals = tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params,
+                                         sections=onepass_sections(params, b))
+        else:
+            evals = pmesh.eval_poly_multi_sharded(
+                crs_key, params.ctr_s, b_all, coeffs, params, mesh)
+        # lane t B + j -> proof j's evaluation t, each proof's five contiguous
+        # (already so at B = 1: no copy)
+        evals = evals.reshape(5, b, n + 1, tlwe.DIGITS).transpose(0, 1).contiguous()
+    return [smudge_proof(ent_key, off, evals[j], params) for j, off in enumerate(offsets)]
 
 
 def prover(
@@ -426,26 +382,19 @@ def prover(
     witness: torch.Tensor,
     params: Params,
     *,
-    tile: int | None = None,
     mesh=None,
 ) -> Proof:
     """src/snark.c:117-190; witness: uint8 bits [m] (bit i-1 gates v_i).
 
-    With ``tile=None`` the five evaluations are one kernel sweep; given a
-    tile they run stage by stage (``_prover_evals_stagewise``).  With
-    ``mesh`` (ssp.v: the rank's rows) the work splits over the ranks as
-    ``prover_polys`` and the evaluations say; every rank returns the
-    whole proof."""
+    ``prover_polys``, then the five evaluations in one kernel sweep and
+    the smudging (``_evaluate_and_smudge``).  With ``mesh`` (ssp.v: the
+    rank's rows) the work splits over the ranks as ``prover_polys`` and
+    the sweep say; every rank returns the whole proof."""
     with span("lwe.prover"):
         # through the module's name, so that a wrapper put there sees the call
         delta, w, v, h = prover_polys(ent_key, ent_offset, ssp, witness, params, mesh=mesh)
-        with span("lwe.prover.evals"):
-            if tile is None:
-                evals = _prover_evals_onepass(crs_key, crs, w, h, v, delta, witness, params, mesh)
-            else:
-                evals = _prover_evals_stagewise(
-                    crs_key, crs, w, h, v, delta, witness, params, tile, mesh)
-        return smudge_proof(ent_key, ent_offset, evals, params)
+        return _evaluate_and_smudge(crs_key, ent_key, [ent_offset], crs, delta, w, v, h,
+                                    witness, params, mesh)[0]
 
 
 def prover_batch(
@@ -461,32 +410,21 @@ def prover_batch(
     witness) pair, in the order of ``offsets``: proof j is byte for byte
     ``prover(crs_key, ent_key, offsets[j], crs, ssp, witnesses[j], params)``.
 
-    t's degree and leading coefficient are read from the device once for
-    the batch; the statements' (delta, w, v, h) come from one call of
+    The statements' (delta, w, v, h) come from one call of
     ``prover_polys_batch``; then all 5B evaluations are one keystream sweep
-    (``onepass_terms``, K3's many-lane form: each CRS section reads only its
-    own 2B or B lanes, ``onepass_sections``), the b-row MAC and one K10
-    fold; each proof is smudged from its own offset (``smudge_proof``).
-    witnesses: uint8 bits [m] each, on the CRS's device."""
+    and each proof is smudged from its own offset (``_evaluate_and_smudge``,
+    the body ``prover`` runs).  witnesses: uint8 bits [m] each, on the
+    CRS's device."""
     offsets, witnesses = list(offsets), list(witnesses)
     if len(offsets) != len(witnesses):
         raise ValueError(f"{len(offsets)} offsets for {len(witnesses)} witnesses")
     if not offsets:
         return []
-    b, n = len(offsets), params.n
     with span("lwe.prover_batch"):
-        t_info = ntt.poly_degree_and_lead(ssp.t)
         wits = torch.stack(witnesses)
         # through the module's name, so that a wrapper put there sees the call
-        delta, w, v, h = prover_polys_batch(ent_key, offsets, ssp, wits, params,
-                                            t_degree_lead=t_info)
-        with span("lwe.prover_batch.evals"):
-            b_all, coeffs = onepass_terms(crs, w, h, v, delta, wits, params)
-            evals = tlwe.eval_poly_multi(crs_key, params.ctr_s, b_all, coeffs, params,
-                                         sections=onepass_sections(params, b))
-            # lane t B + j -> proof j's evaluation t, each proof's five contiguous
-            evals = evals.reshape(5, b, n + 1, tlwe.DIGITS).transpose(0, 1).contiguous()
-        return [smudge_proof(ent_key, off, evals[j], params) for j, off in enumerate(offsets)]
+        delta, w, v, h = prover_polys_batch(ent_key, offsets, ssp, wits, params)
+        return _evaluate_and_smudge(crs_key, ent_key, offsets, crs, delta, w, v, h, wits, params)
 
 
 # the evaluation each smudging draw lands on, in draw order h, hat_h, hat_v,
@@ -499,12 +437,10 @@ def smudge_proof(ent_key: sampling.PRGKey, ent_offset: int, evals, params: Param
     smudging in the reference order h, hat_h, hat_v, v_w, v_w (v_w twice,
     b_w never — src/snark.c:184-189), drawn after delta.
 
-    evals: uint8 [5, n+1, 88], whose b rows are smudged in place (a tuple
-    of five is stacked first); on the card all five draws are one launch
-    of K10's smudge form, the signs read on the device."""
+    evals: uint8 [5, n+1, 88], whose b rows are smudged in place; on the
+    card all five draws are one launch of K10's smudge form, the signs
+    read on the device."""
     with span("lwe.prover.smudge"):
-        if not isinstance(evals, torch.Tensor):
-            evals = torch.stack(list(evals))
         draws = sampling.sample_digit_rows(
             ent_key, ent_offset + 8, 5, draw_bytes=smudge_entropy_bytes(params),
             ndigits=smudge_entropy_bytes(params))  # 80 digit bytes, then the sign byte

@@ -163,7 +163,6 @@ def gated_rowsum_sharded(ssp: tssp.SSP, gate: torch.Tensor, mesh: DeviceMesh) ->
 def encrypt_section_part(
     rank: int, world: int, key: sampling.PRGKey, section_offset: int, sk: torch.Tensor,
     msgs: torch.Tensor, errs: torch.Tensor, params: Params,
-    *, tile: int | None = None, impl: str = "auto",
 ) -> torch.Tensor:
     """The rank's b-rows [hi - lo, 88] of ``lwe.encrypt_section`` over the
     len(msgs) terms: its encryptions from byte section_offset + lo * CTR_CT.
@@ -175,27 +174,24 @@ def encrypt_section_part(
     if errs.shape[0] != hi - lo:
         raise ValueError(f"rank {rank} of {world} owns {hi - lo} terms, got {errs.shape[0]} errors")
     return tlwe.encrypt_section(
-        key, section_offset + lo * params.ctr_ct, sk, msgs[lo:hi], errs, params,
-        tile=tile, impl=impl)
+        key, section_offset + lo * params.ctr_ct, sk, msgs[lo:hi], errs, params)
 
 
 def encrypt_section_sharded(
     key: sampling.PRGKey, section_offset: int, sk: torch.Tensor, msgs: torch.Tensor,
     errs: torch.Tensor, params: Params, mesh: DeviceMesh,
-    *, tile: int | None = None, impl: str = "auto",
 ) -> torch.Tensor:
     """Compressed b-rows [total, 88] of ``lwe.encrypt_section``, the terms
     split over the ranks, on every rank (one ``all_gather``).  errs: the
     rank's own error rows (``encrypt_section_part``)."""
     _, rank, world = axis(mesh)
-    rows = encrypt_section_part(
-        rank, world, key, section_offset, sk, msgs, errs, params, tile=tile, impl=impl)
+    rows = encrypt_section_part(rank, world, key, section_offset, sk, msgs, errs, params)
     return gather_rows(rows, msgs.shape[0], mesh)
 
 
 def eval_poly_multi_part(
     rank: int, world: int, key: sampling.PRGKey, section_offset: int, b_rows: torch.Tensor,
-    coeffs: torch.Tensor, params: Params, *, tile: int | None = None,
+    coeffs: torch.Tensor, params: Params,
 ) -> torch.Tensor:
     """The rank's share of ``lwe.eval_poly_multi``: its terms [lo, hi) of
     the d, from byte section_offset + lo * CTR_CT, as normalized digits
@@ -207,12 +203,12 @@ def eval_poly_multi_part(
         return torch.zeros(k, params.n + 1, dg.DIGITS, dtype=torch.uint8, device=coeffs.device)
     return tlwe.eval_poly_multi(
         key, section_offset + lo * params.ctr_ct, b_rows[lo:hi],
-        coeffs[:, lo:hi].contiguous(), params, tile=tile)
+        coeffs[:, lo:hi].contiguous(), params)
 
 
 def eval_poly_multi_sharded(
     key: sampling.PRGKey, section_offset: int, b_rows: torch.Tensor, coeffs: torch.Tensor,
-    params: Params, mesh: DeviceMesh, *, tile: int | None = None,
+    params: Params, mesh: DeviceMesh,
 ) -> torch.Tensor:
     """k homomorphic evaluations, the degree axis split over the ranks:
     uint8 [k, n+1, 88] on every rank, equal to ``lwe.eval_poly_multi``.
@@ -221,7 +217,7 @@ def eval_poly_multi_sharded(
     every position <= 255 * world, and one ``carry_fold`` normalizes (K10
     on the card, which reads the int32 sums as they are)."""
     group, rank, world = axis(mesh)
-    part = eval_poly_multi_part(rank, world, key, section_offset, b_rows, coeffs, params, tile=tile)
+    part = eval_poly_multi_part(rank, world, key, section_offset, b_rows, coeffs, params)
     part = part.to(torch.int32)
     dist.all_reduce(part, group=group)
     return dg.carry_fold(part)
@@ -229,8 +225,7 @@ def eval_poly_multi_sharded(
 
 def eval_poly_sharded(
     key: sampling.PRGKey, section_offset: int, b_rows: torch.Tensor, coeffs: torch.Tensor,
-    params: Params, mesh: DeviceMesh, *, tile: int | None = None,
+    params: Params, mesh: DeviceMesh,
 ) -> torch.Tensor:
     """Single-polynomial wrapper: uint8 [n+1, 88]."""
-    return eval_poly_multi_sharded(
-        key, section_offset, b_rows, coeffs[None], params, mesh, tile=tile)[0]
+    return eval_poly_multi_sharded(key, section_offset, b_rows, coeffs[None], params, mesh)[0]

@@ -29,10 +29,7 @@ the host and the device through one host buffer; a new pinned buffer is
 such a buffer, page-locked, at an address no staged copy has used before
 (the caching host allocator made it for this call rather than reusing
 one).  They too count only while tracing is on; the addresses are kept on
-every call, so a block first used while tracing was off is not new.
-Statements are the calls of ``statements(n)`` the prover's polynomial
-stage makes, one a stage call with the statements it takes (B for a
-batch, 1 for one proof); a tally, not a launch counter.  The
+every call, so a block first used while tracing was off is not new.  The
 recorder is one per process, as the profiler is, and follows the thread
 that issues the port's work.
 
@@ -59,7 +56,6 @@ _syncs = 0
 _waited = 0.0
 _staged = 0
 _pinned_new = 0
-_statements = 0
 _recording = 0
 
 
@@ -77,7 +73,6 @@ class Record:
     waited: float  # seconds the host waited at its syncs for the card's earlier work
     staged: int = 0  # copies of a whole artifact through one host buffer
     pinned_new: int = 0  # of those, through a pinned buffer not used before
-    statements: int = 0  # statements taken by the polynomial stages inside it
 
 
 def _launched() -> int:
@@ -112,7 +107,7 @@ class span:
         i = len(_records)
         self._rec = Record(self.name, start, None, _open[-1] if _open else -1,
                            _open[0] if _open else i, -_launched(), -_syncs, -_waited,
-                           -_staged, -_pinned_new, -_statements)
+                           -_staged, -_pinned_new)
         _records.append(self._rec)
         _open.append(i)
 
@@ -124,7 +119,6 @@ class span:
         rec.waited += _waited
         rec.staged += _staged
         rec.pinned_new += _pinned_new
-        rec.statements += _statements
         if self._rf is not None:
             self._rf.__exit__(None, None, None)
             self._rf = None
@@ -172,14 +166,6 @@ def staged(site: str, buf: torch.Tensor, pinned: bool) -> None:
         c["pinned_new"] += new
 
 
-def statements(n: int) -> None:
-    """Count ``n`` statements taken by one call of the prover's polynomial
-    stage (module docstring); only while tracing is on."""
-    global _statements
-    if _recording or _profiler._is_profiler_enabled:
-        _statements += n
-
-
 @contextlib.contextmanager
 def recording():
     """Turn the recorder on inside the block without the profiler."""
@@ -219,8 +205,8 @@ def reset() -> None:
 def summary(since: int = 0) -> dict:
     """By span name, over the closed records from index ``since`` on: calls,
     total and self seconds (the duration less what its child spans cover),
-    and launches, host syncs, seconds waited, staged copies, new pinned
-    buffers and statements (children's included)."""
+    and launches, host syncs, seconds waited, staged copies and new pinned
+    buffers (children's included)."""
     recs = _records[since:]
     covered = [0.0] * len(recs)
     for r in recs:
@@ -232,7 +218,7 @@ def summary(since: int = 0) -> dict:
             continue
         s = out.setdefault(r.name, {"calls": 0, "total_s": 0.0, "self_s": 0.0, "launches": 0,
                                     "host_syncs": 0, "waited_s": 0.0, "staged": 0,
-                                    "pinned_new": 0, "statements": 0})
+                                    "pinned_new": 0})
         s["calls"] += 1
         s["total_s"] += r.end - r.start
         s["self_s"] += r.end - r.start - child_s
@@ -241,5 +227,4 @@ def summary(since: int = 0) -> dict:
         s["waited_s"] += r.waited
         s["staged"] += r.staged
         s["pinned_new"] += r.pinned_new
-        s["statements"] += r.statements
     return out

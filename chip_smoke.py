@@ -59,12 +59,12 @@ non-zero, and only a full pass prints the final JSON line):
    runs once, in its many-lane form;
    then one run at d = 2^16, m = 43,690 (``phase_d16``, the counters and
    the peak-memory counter reset): it verifies and rejects a tampered h;
-5. walk the stage-wise path at release parameters with the counters reset
-   again: write CRS, VRS and proof to files, read them back, probe the
-   reloaded CRS and proof, prove stage by stage from the reloaded CRS
-   (tile 256) and require the one-pass proof's bytes, verify from the
-   reloaded VRS, hold the scan evaluation against the fused one over the
-   whole s section, and regenerate one scan tile's a-slab with the
+5. walk the files path at release parameters with the counters reset
+   again (``phase_files``): write CRS, VRS and proof to files, read them
+   back, probe the reloaded CRS and proof, prove from the reloaded CRS
+   (one K3 launch) and require the release run's proof bytes, verify from
+   the reloaded VRS, hold the scan evaluation against the fused one over
+   the whole s section, and regenerate one scan tile's a-slab with the
    bitsliced keystream (K5) against the T-table one (K1);
 6. the multi-device layer (``phase_sharded``): every rank's part at
    W = 4 and W = 3, one after another on the card, combined as the
@@ -95,7 +95,7 @@ GOLDEN_KEYSTREAM = ROOT / "tests" / "golden" / "torch_port_keystream.json"
 SEED = bytes(range(40))
 CRS_SEED, ENT_SEED = bytes(40), bytes([1] * 40)  # the CLI's default seeds
 DEVICE = "cuda"
-TILE = 256  # ciphertexts per tile of the stage-wise / scan path
+TILE = 256  # ciphertexts per tile of the scan path
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "keystream_words": ("c_lwe_snarks_tpu_torch/csrc/keystream.cu",
                         "c_lwe_snarks_tpu/ops/aes_pallas.py:253"),
@@ -125,8 +125,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # kernels each path must launch at least once
 RELEASE_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused", "ntt",
                 "gated_rowsum_p", "matvec_mod_p", "powers_mod_p", "carry_fold", "verify")
-STAGEWISE_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt",
-                  "gated_rowsum_p", "carry_fold", "verify")
+FILES_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt",
+              "gated_rowsum_p", "carry_fold", "verify")
 # the sharded phase's parts: random_ssp's tiles reach K7; the 4-step NTT
 # needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
 SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
@@ -542,7 +542,7 @@ def copy_floor(nbytes: int) -> dict:
 
 def planes_set(gen, n: int) -> tuple:
     """(int64 planes [5, n+1, 88] < 2^26,): K10's planes form at the
-    stage-wise and sharded paths' shape."""
+    sharded path's shape."""
     import torch
 
     return (torch.randint(0, 1 << 26, (5, n + 1, 88), generator=gen, device=DEVICE),)
@@ -580,7 +580,7 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
     largest call and is reported): setup's v, t and powers of s from a
     release random_ssp, setup's b-rows from K4's planes with the release
     errors and messages, t and v_0 at s, the prover's MAC planes
-    and smudging, and the stage-wise and sharded paths' planes."""
+    and smudging, and the sharded path's planes."""
     import torch
 
     from c_lwe_snarks_tpu_torch.models import lwe as tlwe
@@ -630,7 +630,7 @@ def schedule_cases(P, crs_key, ent_key) -> dict:
              lambda: modp.message_powers_plain(s, alpha, d),
              bound(8 * (2 * d + 2), MULMOD_OPS * 2 * d))],
         "carry_fold": [
-            (f"the planes form, stage-wise and sharded evaluations: [5, {n + 1}, 88] int64", 20,
+            (f"the planes form, the sharded evaluation: [5, {n + 1}, 88] int64", 20,
              lambda: dg.carry_fold(planes), lambda: dg.carry_fold_plain(planes),
              bound(9 * planes.numel(), FOLD_POS_OPS * planes.numel()), planes_sets),
             ("the smudge form, the prover's five draws on four b rows (launch-bound)", 20,
@@ -1234,11 +1234,11 @@ def device_times(fn) -> tuple[dict, float]:
     """({kernel or copy name: (device microseconds, count)}, host seconds) of
     one call of fn under torch.profiler, synchronized.
 
-    fn starts PROFILER_SETTLE_S after the profiler: the trace holds every
-    host-side launch call from the start, but kernels launched in about
-    the first millisecond can be missing from it (tools/profile_gap.py:
-    on an H100, 2 of 16 bursts of 20 launches at once lost 20 and 1; with
-    1, 10 or 50 ms between, none of 48 lost any)."""
+    fn starts PROFILER_SETTLE_S after the profiler, as the benchmark
+    harness's requests do (``portbench/harness.py``'s 10 ms ``SETTLE_S``):
+    the trace holds every host-side launch call from the start, but
+    kernels launched in about the first millisecond can be missing from
+    it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1363,7 +1363,7 @@ def phase_profile(label: str) -> None:
     # K8, K9 and K10 device-side at the main path's shapes: setup's v [m, d]
     # and its messages form at d, t and v_0 at s, the b-rows
     # of 2d + m encryptions (K4's planes made once, outside), the prover's
-    # MAC planes and smudging, the stage-wise and sharded paths' planes
+    # MAC planes and smudging, the sharded path's planes
     s = torch.tensor(123456789, dtype=torch.int64, device=DEVICE)
     alpha = torch.tensor(987654321, dtype=torch.int64, device=DEVICE)
     powers = modp.powers_mod_p(s, P.d)
@@ -1526,8 +1526,8 @@ def phase_release(label: str):
     try:
         msgs = tsnark.setup_messages(vrs.alpha, vrs.beta, vrs.s, ssp.t,
                                      lambda powers: modp.matvec_mod_p(ssp.v, powers), P.d, P.m)
-        evals = tsnark._prover_evals_onepass(crs_key, run.crs, w, h, v, delta, run.witness, P)
-        proof = tsnark.smudge_proof(ent_key, off_prove, evals, P)
+        proof, = tsnark._evaluate_and_smudge(crs_key, ent_key, [off_prove], run.crs, delta, w, v,
+                                             h, run.witness, P)
         accepted = tsnark.verifier(vrs, ssp, proof, P)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1626,19 +1626,16 @@ def phase_batch_stage(crs_key, ent_key, offsets, run, wits, one: dict, label: st
     import torch
 
     from c_lwe_snarks_tpu_torch.models import snark as tsnark
-    from c_lwe_snarks_tpu_torch.ops import ntt
     from c_lwe_snarks_tpu_torch.utils.params import release
 
     P = release()
-    t_info = ntt.poly_degree_and_lead(run.ssp.t)
     stmts = torch.stack(wits)
 
     def stage():
-        return tsnark.prover_polys_batch(ent_key, offsets, run.ssp, stmts, P, t_degree_lead=t_info)
+        return tsnark.prover_polys_batch(ent_key, offsets, run.ssp, stmts, P)
 
     def singles():
-        return [tsnark.prover_polys(ent_key, off, run.ssp, w, P, t_degree_lead=t_info)
-                for off, w in zip(offsets, wits)]
+        return [tsnark.prover_polys(ent_key, off, run.ssp, w, P) for off, w in zip(offsets, wits)]
 
     want, singles_ms = timed(singles)
     counters = reset_counters()
@@ -1709,9 +1706,9 @@ def phase_d16(label: str) -> dict:
     return launches
 
 
-def phase_stagewise(run, label: str) -> dict:
-    """Setup's files -> a prover that loads the CRS and proves stage by stage
-    -> the designated verifier that loads VRS and proof, probes and verifies."""
+def phase_files(run, label: str) -> dict:
+    """Setup's files -> a prover that loads the CRS and proves -> the
+    designated verifier that loads VRS and proof, probes and verifies."""
     import torch
 
     from c_lwe_snarks_tpu_torch.models import lwe as tlwe
@@ -1748,23 +1745,23 @@ def phase_stagewise(run, label: str) -> dict:
         crs.b_s.is_cuda and serial.crs_to_bytes(crs, P) == serial.crs_to_bytes(run.crs, P)
         and serial.vrs_to_bytes(vrs, P) == serial.vrs_to_bytes(run.vrs, P)
         and torch.equal(proof.stack(), run.proof.stack()))
-    print(f"phase stagewise: files {sizes} bytes written and read back on the card: "
+    print(f"phase files: files {sizes} bytes written and read back on the card: "
           f"round trip equal={round_trip}, row table ok={table_ok}")
-    check(round_trip and table_ok, "stagewise: artifacts did not round-trip through the files")
+    check(round_trip and table_ok, "files: artifacts did not round-trip through the files")
 
     with obs.timeit("probe_crs + probe_crs_range(256) + probe_proof", out=times):
         probes = {f"{name}.{k}": v for name, checks in (
             ("crs", obs.probe_crs(crs, vrs, P)),
             ("crs_range", obs.probe_crs_range(crs, vrs, P, count=TILE)),
             ("proof", obs.probe_proof(proof, vrs, P))) for k, v in flags(checks).items()}
-    print(f"phase stagewise: probes on the reloaded CRS/VRS/proof: {probes}")
-    check(len(probes) == 11 and all(probes.values()), "stagewise: a decrypt-probe failed")
+    print(f"phase files: probes on the reloaded CRS/VRS/proof: {probes}")
+    check(len(probes) == 11 and all(probes.values()), "files: a decrypt-probe failed")
 
     crs_key, ent_key = sampling.PRGKey(crs.seed), sampling.PRGKey(ENT_SEED)
     off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
     before = read_counters(counters)["eval_mac_planes"]
-    with obs.timeit(f"prover(tile={TILE}) stage-wise", out=times):
-        pi = tsnark.prover(crs_key, ent_key, off_prove, crs, run.ssp, run.witness, P, tile=TILE)
+    with obs.timeit("prover from the reloaded CRS", out=times):
+        pi = tsnark.prover(crs_key, ent_key, off_prove, crs, run.ssp, run.witness, P)
     k3_launches = read_counters(counters)["eval_mac_planes"] - before
     same_proof = serial.proof_to_bytes(pi, P) == serial.proof_to_bytes(run.proof, P)
     with obs.timeit("verifier from the reloaded VRS", out=times):
@@ -1773,11 +1770,11 @@ def phase_stagewise(run, label: str) -> dict:
     bad_bw[0, 0] ^= 1
     bad = tsnark.Proof(h=pi.h, hat_h=pi.hat_h, hat_v=pi.hat_v, v_w=pi.v_w, b_w=bad_bw)
     rejected = not bool(tsnark.verifier(vrs, run.ssp, bad, P))
-    print(f"phase stagewise: stage-wise proof bytes equal the one-pass proof's={same_proof} "
+    print(f"phase files: proof from the reloaded CRS equal to the release run's={same_proof} "
           f"({k3_launches} K3 launches), verified={ok}, tampered_rejected={rejected}")
-    check(same_proof, "stagewise: the stage-wise proof differs from the one-pass proof")
-    check(k3_launches == 3, f"stagewise: expected 3 K3 launches, saw {k3_launches}")
-    check(ok and rejected, "stagewise: verifier")
+    check(same_proof, "files: the proof from the reloaded CRS differs from the release run's")
+    check(k3_launches == 1, f"files: expected 1 K3 launch, saw {k3_launches}")
+    check(ok and rejected, "files: verifier")
 
     # the scan evaluation (K1 per tile + exact matmuls) against the fused one
     # (K3) over the whole s section, k = 2 lanes
@@ -1788,9 +1785,9 @@ def phase_stagewise(run, label: str) -> dict:
     with obs.timeit("eval_poly_multi(impl=fused) over the s section", out=times):
         fused = tlwe.eval_poly_multi(crs_key, P.ctr_s, crs.b_s, coeffs, P, impl="fused")
     scan_err = max_abs_err(scan, fused)
-    print(f"phase stagewise: scan vs fused eval over the s section (d={P.d}, k=2) "
+    print(f"phase files: scan vs fused eval over the s section (d={P.d}, k=2) "
           f"max_abs_err={scan_err} (tolerance 0)")
-    check(scan_err == 0, "stagewise: scan and fused evaluations differ")
+    check(scan_err == 0, "files: scan and fused evaluations differ")
 
     # one scan tile's a-slab from the bitsliced keystream (K5) against the
     # T-table one (K1, through expand_a)
@@ -1801,16 +1798,16 @@ def phase_stagewise(run, label: str) -> dict:
     with obs.timeit("a-slab of one tile from expand_a (K1)", out=times):
         slab1 = sampling.expand_a(crs_key, P.ctr_s, TILE, P.n)
     slab_err = max_abs_err(slab5, slab1)
-    print(f"phase stagewise: a-slab of {TILE} ciphertexts, bitsliced (K5) vs T-table (K1) "
+    print(f"phase files: a-slab of {TILE} ciphertexts, bitsliced (K5) vs T-table (K1) "
           f"keystream max_abs_err={slab_err} (tolerance 0)")
-    check(slab_err == 0, "stagewise: K5 and K1 a-slabs differ")
+    check(slab_err == 0, "files: K5 and K1 a-slabs differ")
 
     launches = read_counters(counters)
     for step, sec in times.items():
-        print(f"phase stagewise: {step} {sec:.3f} s [{label}]")
-    print(f"phase stagewise: launches {launches}")
-    for name in STAGEWISE_PATH:
-        check(launches[name] > 0, f"stagewise: kernel {name} was not launched on this path")
+        print(f"phase files: {step} {sec:.3f} s [{label}]")
+    print(f"phase files: launches {launches}")
+    for name in FILES_PATH:
+        check(launches[name] > 0, f"files: kernel {name} was not launched on this path")
     return launches
 
 
@@ -2003,17 +2000,17 @@ def main() -> int:
     run, release_launches = phase_release(label)
     batch_launches = phase_batch(run, label)
     d16_launches = phase_d16(label)
-    stagewise_launches = phase_stagewise(run, label)
+    files_launches = phase_files(run, label)
     sharded_launches = phase_sharded(run, label)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": (release_launches if name in RELEASE_PATH else batch_launches
-                      if name in BATCH_PATH else stagewise_launches)[name],
+                      if name in BATCH_PATH else files_launches)[name],
          "launches_by_path": {"release": release_launches[name],
                               "batch": batch_launches[name],
                               "d16": d16_launches[name],
-                              "stagewise": stagewise_launches[name],
+                              "files": files_launches[name],
                               "sharded": sharded_launches[name]},
          **results[name]}
         for name, (src, rep) in KERNELS.items()

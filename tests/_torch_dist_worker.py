@@ -164,9 +164,7 @@ def primitives(rank: int, world: int, outdir: str) -> None:
     import torch
 
     from c_lwe_snarks_tpu_torch.__main__ import run_protocol
-    from c_lwe_snarks_tpu_torch.models import snark as tsnark
     from c_lwe_snarks_tpu_torch.models import ssp as tssp
-    from c_lwe_snarks_tpu_torch.ops import sampling
     from c_lwe_snarks_tpu_torch.parallel import mesh as pmesh
     from c_lwe_snarks_tpu_torch.utils import serial
     from c_lwe_snarks_tpu_torch.utils.params import Params
@@ -182,14 +180,6 @@ def primitives(rank: int, world: int, outdir: str) -> None:
     ssp = tssp.SSP(t=run.ssp.t, v=pmesh.gather_rows(run.ssp.v, P.m, mesh))
     blobs = {"ssp": serial.ssp_to_buffer(ssp, P), "crs": serial.crs_to_bytes(run.crs, P),
              "vrs": serial.vrs_to_bytes(run.vrs, P), "proof": serial.proof_to_bytes(run.proof, P)}
-    # the scan setup and the stage-wise prover under the mesh (tile 8)
-    crs_key, ent_key = sampling.PRGKey(CRS_SEED, "cpu"), sampling.PRGKey(ENT_SEED, "cpu")
-    off_setup = tssp.entropy_bytes_random_ssp(P)
-    off_prove = off_setup + tsnark.setup_entropy_bytes(P)
-    crs, _ = tsnark.setup(crs_key, ent_key, off_setup, run.ssp, P, tile=8, mesh=mesh)
-    blobs["crs_scan"] = serial.crs_to_bytes(crs, P)
-    blobs["proof_stagewise"] = serial.proof_to_bytes(tsnark.prover(
-        crs_key, ent_key, off_prove, run.crs, run.ssp, run.witness, P, tile=8, mesh=mesh), P)
     with open(os.path.join(outdir, f"protocol_{rank}.json"), "w") as f:
         json.dump({"verified": run.verified, "row0": run.ssp.row0,
                    "sha256": {k: hashlib.sha256(b).hexdigest() for k, b in blobs.items()}}, f)

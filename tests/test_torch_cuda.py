@@ -273,9 +273,9 @@ def test_k5_keystream_blocks_v1(cuda):
 
 
 @pytest.mark.gpu
-def test_stagewise_prover_equals_onepass(cuda):
-    """prover(tile=...) on the card: three K3 launches, the one-pass proof's
-    bytes, probes true on the artifacts reloaded through the byte formats."""
+def test_prover_from_reloaded_artifacts(cuda):
+    """The prover on the card from a CRS reloaded through the byte formats:
+    one K3 launch, the run's proof bytes, probes true on the artifacts."""
     golden = json.loads(GOLDEN.read_text())
     P = Params(**golden["profiles"]["tiny"]["params"])
     crs_seed, ent_seed = bytes.fromhex(golden["crs_seed"]), bytes.fromhex(golden["ent_seed"])
@@ -286,8 +286,8 @@ def test_stagewise_prover_equals_onepass(cuda):
     off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
     before = eval_fused.LAUNCHES["eval_mac_planes"]
     pi = tsnark.prover(sampling.PRGKey(crs.seed), sampling.PRGKey(ent_seed), off_prove, crs,
-                       run.ssp, run.witness, P, tile=4)
-    assert eval_fused.LAUNCHES["eval_mac_planes"] == before + 3
+                       run.ssp, run.witness, P)
+    assert eval_fused.LAUNCHES["eval_mac_planes"] == before + 1
     assert serial.proof_to_bytes(pi, P) == serial.proof_to_bytes(run.proof, P)
     assert bool(tsnark.verifier(vrs, run.ssp, pi, P))
     assert all(bool(v) for v in obs.probe_crs_range(crs, vrs, P).values())
@@ -767,8 +767,8 @@ def test_k8_k9_k10_setup_schedule_and_verifier_without_host_sync(cuda):
     try:
         msgs = tsnark.setup_messages(
             alpha, beta, s, ssp.t, lambda powers: modp.matvec_mod_p(ssp.v, powers), P.d, P.m)
-        evals = tsnark._prover_evals_onepass(key, run.crs, w, h, v, delta, run.witness, P)
-        proof = tsnark.smudge_proof(ent, off_prove, evals, P)
+        proof, = tsnark._evaluate_and_smudge(key, ent, [off_prove], run.crs, delta, w, v, h,
+                                             run.witness, P)
         ok = tsnark.verifier(vrs, ssp, proof, P)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -993,11 +993,14 @@ def test_prover_batch_at_release_equals_prover(release_circuit):
 @pytest.mark.gpu
 def test_prover_polys_batch_at_release_equals_prover_polys(release_circuit):
     """Ten statements' polynomial stage at release in one
-    ``prover_polys_batch``: row j is ``prover_polys`` of statement j; with t's
-    degree given it makes no host sync, a K1 and a K7 launch a
-    statement and one statement's 31 K6 launches (t's series inverse once).
-    The stage's and the ten single stages' walls are printed."""
+    ``prover_polys_batch``: row j is ``prover_polys`` of statement j; it
+    makes one host sync (t's degree, as one statement's stage does), a K1
+    and a K7 launch a statement and one statement's 31 K6 launches (t's
+    series inverse once).  The stage's and the ten single stages' walls are
+    printed."""
     import time
+
+    from c_lwe_snarks_tpu_torch.utils import spans
 
     P, ssp, _, _, _ = release_circuit
     dev = torch.device("cuda")
@@ -1008,14 +1011,12 @@ def test_prover_polys_batch_at_release_equals_prover_polys(release_circuit):
     wits = torch.randint(0, 2, (10, P.m), generator=gen, device=dev, dtype=torch.uint8)
     wits[1] = 0
     wits[2] = 1
-    t_info = ntt.poly_degree_and_lead(ssp.t)
 
     def singles():
-        return [tsnark.prover_polys(ent_key, off, ssp, w, P, t_degree_lead=t_info)
-                for off, w in zip(offsets, wits)]
+        return [tsnark.prover_polys(ent_key, off, ssp, w, P) for off, w in zip(offsets, wits)]
 
     def batch():
-        return tsnark.prover_polys_batch(ent_key, offsets, ssp, wits, P, t_degree_lead=t_info)
+        return tsnark.prover_polys_batch(ent_key, offsets, ssp, wits, P)
 
     want, got = singles(), batch()  # warm
     for j in range(10):
@@ -1031,12 +1032,11 @@ def test_prover_polys_batch_at_release_equals_prover_polys(release_circuit):
     print(f"prover_polys_batch at release, 10 statements: {walls['batch'] * 1e3:.3f} ms; ten "
           f"prover_polys {walls['singles'] * 1e3:.3f} ms")
     before = (dict(aes.LAUNCHES), dict(modp.LAUNCHES), ntt.LAUNCHES["ntt"])
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    spans.reset()
+    with spans.recording():
         again = batch()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    assert spans.sync_sites() == {"ntt.poly_degree_and_lead": 1}
+    spans.reset()
     assert aes.LAUNCHES["keystream_words"] - before[0]["keystream_words"] == 10
     assert modp.LAUNCHES["gated_rowsum_p"] - before[1]["gated_rowsum_p"] == 10
     assert ntt.LAUNCHES["ntt"] - before[2] == 31

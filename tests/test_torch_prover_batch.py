@@ -89,7 +89,8 @@ def test_prover_batch_equals_prover(circuit, single, requests):
 
 def test_prover_batch_spans_and_syncs(circuit):
     """One outermost span for the batch, t's degree read once, one
-    ``lwe.prover.polys`` for the batch before the shared sweep and one
+    ``lwe.prover.polys`` for the batch before the shared sweep
+    (``lwe.prover.evals``, the single prover's) and one
     ``lwe.prover.smudge`` a statement after it; no proofs for no requests;
     offsets and witnesses paired."""
     crs_key, ent_key, crs, _, inst, wits = circuit
@@ -97,7 +98,7 @@ def test_prover_batch_spans_and_syncs(circuit):
     with spans.recording():
         snark.prover_batch(crs_key, ent_key, [OFF_PROVE, OFF_PROVE + STEP], crs, inst, wits[:2], P)
     names = [r.name for r in spans.records()]
-    assert names == ["lwe.prover_batch", "lwe.prover.polys", "lwe.prover_batch.evals",
+    assert names == ["lwe.prover_batch", "lwe.prover.polys", "lwe.prover.evals",
                      "lwe.prover.smudge", "lwe.prover.smudge"]
     assert [r.parent for r in spans.records()] == [-1, 0, 0, 0, 0]
     assert spans.sync_sites() == {"ntt.poly_degree_and_lead": 1}
@@ -123,7 +124,7 @@ def _statements(wits, b):
 def test_prover_polys_batch_equals_prover_polys(circuit, b, zero_top):
     """Row j of the batched stage is byte for byte ``prover_polys`` of
     statement j, offsets out of order and not block-aligned, witnesses
-    random, all 0 and all 1; t's degree and lead given or read."""
+    random, all 0 and all 1."""
     _, ent_key, _, _, inst, wits = circuit
     if zero_top:
         t = inst.t.clone()
@@ -132,14 +133,12 @@ def test_prover_polys_batch_equals_prover_polys(circuit, b, zero_top):
         assert ntt.poly_degree_and_lead(t)[0] < P.d - zero_top
     offs = [OFF_PROVE + (7 * j % b) * STEP for j in range(b)]
     stmts = _statements(wits, b)
-    for t_info in (None, ntt.poly_degree_and_lead(inst.t)):
-        got = snark.prover_polys_batch(ent_key, offs, inst, torch.stack(stmts), P,
-                                       t_degree_lead=t_info)
-        assert [tuple(x.shape) for x in got] == [(b,), (b, P.d), (b, P.d), (b, P.d)]
-        for j, (off, wit) in enumerate(zip(offs, stmts)):
-            want = snark.prover_polys(ent_key, off, inst, wit, P)
-            for g, w in zip(got, want):
-                assert g.dtype == w.dtype == torch.int64 and torch.equal(g[j], w)
+    got = snark.prover_polys_batch(ent_key, offs, inst, torch.stack(stmts), P)
+    assert [tuple(x.shape) for x in got] == [(b,), (b, P.d), (b, P.d), (b, P.d)]
+    for j, (off, wit) in enumerate(zip(offs, stmts)):
+        want = snark.prover_polys(ent_key, off, inst, wit, P)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == torch.int64 and torch.equal(g[j], w)
     # a count of witnesses that differs from the offsets' is refused
     with pytest.raises(ValueError, match="offsets"):
         snark.prover_polys_batch(ent_key, offs + [OFF_PROVE], inst, torch.stack(stmts), P)
@@ -190,26 +189,70 @@ def test_planted_faults_in_the_batched_stage_change_the_proofs(circuit, single, 
     assert same == ([True, False, False] if fault == "statement0" else [False, False, True])
 
 
-def test_statements_counter_reads_b_a_batch_and_1_a_proof(circuit):
-    """``spans.statements`` tallies the statements of each polynomial stage:
-    B in a batch's one ``lwe.prover.polys``, 1 in a proof's; it counts only
-    while tracing is on and adds nothing to the launches."""
+def _tree(recs):
+    """(name, parent, launches, host syncs) of each span below the outermost."""
+    return [(r.name, r.parent, r.launches, r.syncs) for r in recs[1:]]
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["off0", "off1"])
+@pytest.mark.parametrize("j", [0, 1, 2], ids=["stmt0", "stmt1", "stmt2"])
+def test_prover_is_a_batch_of_one(circuit, i, j):
+    """``prover(off, w)`` and ``prover_batch([off], [w])[0]`` run one body:
+    the same bytes (the JAX package's), the same host syncs and the same
+    spans under their outermost one (``lwe.prover.polys``,
+    ``lwe.prover.evals``, ``lwe.prover.smudge``)."""
     crs_key, ent_key, crs, _, inst, wits = circuit
-    offsets = [OFF_PROVE + i * STEP for i in range(3)]
+    off = OFF_PROVE + i * STEP
+    got = {}
+    for name, call in (
+            ("lwe.prover", lambda: snark.prover(crs_key, ent_key, off, crs, inst, wits[j], P)),
+            ("lwe.prover_batch", lambda: snark.prover_batch(
+                crs_key, ent_key, [off], crs, inst, [wits[j]], P)[0])):
+        spans.reset()
+        with spans.recording():
+            blob = serial.proof_to_bytes(call(), P)
+        recs = [r for r in spans.records() if not r.name.startswith("lwe.serial")]
+        assert recs[0].name == name and recs[0].parent == -1
+        got[name] = (blob, _tree(recs), spans.sync_sites())
     spans.reset()
-    snark.prover_batch(crs_key, ent_key, offsets, crs, inst, wits, P)
-    assert spans.records() == []
-    with spans.recording():
-        snark.prover_batch(crs_key, ent_key, offsets, crs, inst, wits, P)
-        snark.prover(crs_key, ent_key, OFF_PROVE, crs, inst, wits[0], P)
-    polys = [r for r in spans.records() if r.name == "lwe.prover.polys"]
-    assert [r.statements for r in polys] == [3, 1]
-    s = spans.summary()
-    assert s["lwe.prover.polys"]["calls"] == 2 and s["lwe.prover.polys"]["statements"] == 4
-    assert (s["lwe.prover_batch"]["statements"], s["lwe.prover"]["statements"]) == (3, 1)
-    assert s["lwe.prover_batch.evals"]["statements"] == 0
-    assert all("statements" not in c for c in spans._launch_counters)
+    one, batch = got["lwe.prover"], got["lwe.prover_batch"]
+    assert one == batch
+    assert [n for n, *_ in one[1]] == ["lwe.prover.polys", "lwe.prover.evals",
+                                       "lwe.prover.smudge"]
+    assert one[2] == {"ntt.poly_degree_and_lead": 1, "serial.proof_to_bytes": 1}
+    assert hashlib.sha256(one[0]).hexdigest() == GOLDEN["proof_sha256"][f"{i},{j}"]
+
+
+@pytest.mark.parametrize("zero_top", [0, 2], ids=["top_nonzero", "top_zero"])
+def test_the_polynomial_stage_reads_t_once_a_call(circuit, zero_top):
+    """``prover_polys`` and ``prover_polys_batch`` each read t's degree and
+    lead from the device once a call, whether t's top formal coefficients
+    are zero (the division's shift branch) or not."""
+    _, ent_key, _, _, inst, wits = circuit
+    if zero_top:
+        t = inst.t.clone()
+        t[-zero_top:] = 0
+        inst = dataclasses.replace(inst, t=t)
+    offs = [OFF_PROVE + k * STEP for k in range(3)]
+    for call in (lambda: snark.prover_polys(ent_key, offs[0], inst, wits[0], P),
+                 lambda: snark.prover_polys_batch(ent_key, offs, inst, torch.stack(wits), P)):
+        spans.reset()
+        with spans.recording():
+            call()
+        assert spans.sync_sites() == {"ntt.poly_degree_and_lead": 1}
+        assert [r.name for r in spans.records()] == ["lwe.prover.polys"]
     spans.reset()
+
+
+def test_a_mesh_sweeps_one_statement(circuit):
+    """The sharded sweep proves one statement: the body refuses a mesh with
+    B > 1 before it evaluates anything."""
+    crs_key, ent_key, crs, _, inst, wits = circuit
+    offs = [OFF_PROVE, OFF_PROVE + STEP]
+    delta, w, v, h = snark.prover_polys_batch(ent_key, offs, inst, torch.stack(wits[:2]), P)
+    with pytest.raises(ValueError, match="one statement"):
+        snark._evaluate_and_smudge(crs_key, ent_key, offs, crs, delta, w, v, h,
+                                   torch.stack(wits[:2]), P, mesh=object())
 
 
 def test_onepass_terms_lay_out_lanes_by_kind(circuit):

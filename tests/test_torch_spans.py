@@ -200,7 +200,7 @@ def test_program_span_names_are_not_the_benchmarks():
     bench = {"window", "request"}
     for path in (ROOT / "portbench" / "entries").glob("*.py"):
         bench |= _calls(path, "spans")
-    assert {"lwe.prover", *PROVER_CHILDREN, "lwe.prover_batch", "lwe.prover_batch.evals",
+    assert {"lwe.prover", *PROVER_CHILDREN, "lwe.prover_batch",
             "lwe.random_ssp", "lwe.setup", "lwe.setup.keys",
             "lwe.setup.messages", "lwe.setup.encrypt", "lwe.verifier",
             "lwe.serial.proof_to_bytes", "lwe.serial.crs_to_bytes", "lwe.serial.vrs_to_bytes",

@@ -1,12 +1,13 @@
-"""PyTorch port vs the JAX package: the stage-wise prover and the scan
+"""PyTorch port vs the JAX package: the JAX stage-wise prover and the scan
 (two-stage) forms of eval_poly_multi / encrypt_section.
 
-At the tiny parameters of tests/test_torch_snark.py the port's
-``prover(tile=...)`` must give the JAX package's stage-wise proof and the
-port's own one-pass proof, byte for byte; the scan paths, ``encrypt`` and
-``ct_select_add`` are held against the JAX functions on inputs made from
-numpy seeds, at n = 6 where a ciphertext is a half AES block long, so
-odd-index offsets have lead 8.  Each JAX reference set is ONE jit.
+At the tiny parameters of tests/test_torch_snark.py the port's one-pass
+``prover`` must give the JAX package's stage-wise proof (tile=TILE), byte
+for byte, from its own state and from the JAX package's; the scan paths,
+``encrypt`` and ``ct_select_add`` are held against the JAX functions on
+inputs made from numpy seeds, at n = 6 where a ciphertext is a half AES
+block long, so odd-index offsets have lead 8.  Each JAX reference set is
+ONE jit.
 """
 
 import numpy as np
@@ -74,46 +75,27 @@ def port_run():
     return run_protocol(P, "cpu", CRS_SEED, ENT_SEED)
 
 
-def _port_prover(run, tile):
+def test_stagewise_proof_equals_jax_stagewise(jax_run, port_run):
+    """The port's one-pass proof is the JAX stage-wise proof's bytes."""
     crs_key, ent_key = tsam.PRGKey(CRS_SEED, "cpu"), tsam.PRGKey(ENT_SEED, "cpu")
     off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
-    return tsnark.prover(crs_key, ent_key, off_prove, run.crs, run.ssp, run.witness, P, tile=tile)
-
-
-def test_stagewise_proof_equals_jax_stagewise(jax_run, port_run):
-    pi = _port_prover(port_run, TILE)
+    pi = tsnark.prover(crs_key, ent_key, off_prove, port_run.crs, port_run.ssp,
+                       port_run.witness, P)
     np.testing.assert_array_equal(convert.proof_to_numpy(pi), np.asarray(jax_run[4].stack()))
-
-
-@pytest.mark.parametrize("tile", [2, TILE, 6, 16, 256])
-def test_stagewise_proof_equals_onepass(port_run, tile):
-    """Tiles below, at and above the section lengths (m - 1 = 7, d = 16)."""
-    pi = _port_prover(port_run, tile)
-    assert torch.equal(pi.stack(), port_run.proof.stack())
     assert bool(tsnark.verifier(port_run.vrs, port_run.ssp, pi, P))
 
 
 def test_stagewise_from_jax_state(jax_run):
-    """The port's stage-wise prover fed the JAX package's SSP and CRS."""
+    """The port's prover fed the JAX package's SSP and CRS gives the JAX
+    stage-wise proof."""
     wits, inst, crs, vrs, pi = jax_run
     ssp = convert.ssp_from_numpy(np.asarray(inst.t), np.asarray(inst.v), "cpu")
     tcrs = convert.crs_from_numpy(crs.seed, np.asarray(crs.b_s), np.asarray(crs.b_as),
                                   np.asarray(crs.b_t), np.asarray(crs.b_v), "cpu")
     off_prove = tssp.entropy_bytes_random_ssp(P) + tsnark.setup_entropy_bytes(P)
     got = tsnark.prover(tsam.PRGKey(CRS_SEED, "cpu"), tsam.PRGKey(ENT_SEED, "cpu"), off_prove,
-                        tcrs, ssp, torch.from_numpy(np.array(wits)), P, tile=TILE)
+                        tcrs, ssp, torch.from_numpy(np.array(wits)), P)
     np.testing.assert_array_equal(convert.proof_to_numpy(got), np.asarray(pi.stack()))
-
-
-@pytest.mark.parametrize("tile", [TILE, 6])
-def test_setup_with_tile_equals_fused_setup(port_run, tile):
-    """setup(tile=...) takes the scan encrypt path; same CRS and VRS."""
-    crs_key, ent_key = tsam.PRGKey(CRS_SEED, "cpu"), tsam.PRGKey(ENT_SEED, "cpu")
-    crs, vrs = tsnark.setup(crs_key, ent_key, tssp.entropy_bytes_random_ssp(P), port_run.ssp, P,
-                            tile=tile)
-    for name in ("b_s", "b_as", "b_t", "b_v"):
-        assert torch.equal(getattr(crs, name), getattr(port_run.crs, name)), name
-    assert torch.equal(vrs.sk, port_run.vrs.sk) and int(vrs.s) == int(port_run.vrs.s)
 
 
 # --------------------------------------------------------------------------
