@@ -230,9 +230,12 @@ def _prover_polys(ent_key, offsets, ssp, witnesses, params, mesh) -> tuple:
         t_degree, t_lead = ntt.poly_degree_and_lead(t)
         delta = _deltas(ent_key, offsets).reshape(lead)
         if mesh is None:
-            rowsums = [modp.gated_rowsum_mod_p(ssp.v[1:], wit[: m - 1])
-                       for wit in witnesses.reshape(-1, witnesses.shape[-1])]
-            rowsum = torch.stack(rowsums).reshape(*lead, d) if lead else rowsums[0]
+            gates = witnesses.reshape(-1, witnesses.shape[-1])[:, : m - 1]
+            if gates.shape[0] == 1:  # one statement: K7, as random_ssp runs it
+                rowsum = modp.gated_rowsum_mod_p(ssp.v[1:], gates[0])
+            else:  # its many-witness form: one read of v for every statement
+                rowsum = modp.gated_rowsums_mod_p(ssp.v[1:], gates)
+            rowsum = rowsum.reshape(*lead, d)
             v0 = ssp.v[0]
         else:
             gate = F.pad(witnesses[: m - 1], (1, 0))  # row i gated by bit i-1, v_0 not
@@ -286,8 +289,10 @@ def prover_polys_batch(
     ``prover_polys``), one reduction of the B deltas (``_deltas``), w and v
     as [B, d] ops, v^2 as one K6 product over the B rows, and the division
     with t's series inverse made once (one Newton launch and the levels
-    above it) and one quotient product; only the deltas' draws (K1) and the
-    row-sums (K7) are a launch a statement.  witnesses: uint8 bits [B, m]."""
+    above it) and one quotient product; the B row-sums in one launch of
+    K7's many-witness form (one read of v; B = 1 keeps K7's one-witness
+    form); only the deltas' draws (K1) are a launch a statement.
+    witnesses: uint8 bits [B, m]."""
     offsets = list(offsets)
     if not offsets or witnesses.dim() != 2 or witnesses.shape[0] != len(offsets):
         raise ValueError(f"{len(offsets)} offsets for witnesses {tuple(witnesses.shape)}")

@@ -27,8 +27,9 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# C signatures: "p" pointer (CUDA tensor), "h" pointer to host bytes, "u32",
-# "u64", "i64"; every function takes the CUDA stream last and returns a CUDA
+# C signatures: "p" pointer (contiguous CUDA tensor), "r" pointer (CUDA tensor
+# whose rows are contiguous, the row stride passed beside it), "h" pointer to
+# host bytes, "u32", "u64", "i64"; every function takes the CUDA stream last and returns a CUDA
 # error code (of the launch, or of setting a kernel attribute) as int.
 SIGNATURES = {
     "cls_ntt_pass": ("p", "p", "p", "p", *("i64",) * 13, "u32", "u32", "u32"),
@@ -36,6 +37,7 @@ SIGNATURES = {
     "cls_ntt_levels": ("p", "p", "p", "p", "p", *("i64",) * 4),
     "cls_ntt_newton": ("p", "p", "p", "p", *("i64",) * 5, "u32", "u32"),
     "cls_gated_rowsum_p": ("p", "p", "i64", "i64", "p", "p", "p"),
+    "cls_gated_rowsums_p": ("p", "r", *("i64",) * 4, "p", "p", "p"),
     "cls_matvec_mod_p": ("p", "p", "i64", "i64", "i64", "p", "p", "p"),
     "cls_matvec_at_s_mod_p": ("p", "p", "i64", "i64", "i64", "p", "p", "p"),
     "cls_powers_mod_p": ("p", "p", "u32", "i64", "p"),
@@ -112,7 +114,7 @@ def library():
     if _lib is None:
         import ctypes
 
-        types = {"p": ctypes.c_void_p, "h": ctypes.c_char_p, "u32": ctypes.c_uint32,
+        types = {"p": ctypes.c_void_p, "r": ctypes.c_void_p, "h": ctypes.c_char_p, "u32": ctypes.c_uint32,
                  "u64": ctypes.c_uint64, "i64": ctypes.c_int64}
         lib = ctypes.CDLL(str(build()))
         for name, sig in SIGNATURES.items():
@@ -150,6 +152,10 @@ def launch(name: str, *args) -> None:
         if kind == "p":
             if not (isinstance(a, torch.Tensor) and a.is_cuda and a.is_contiguous()):
                 raise ValueError(f"{name}: pointer arguments must be contiguous CUDA tensors")
+            cargs.append(a.data_ptr())
+        elif kind == "r":
+            if not (isinstance(a, torch.Tensor) and a.is_cuda and a.stride(-1) == 1):
+                raise ValueError(f"{name}: row arguments must be CUDA tensors with contiguous rows")
             cargs.append(a.data_ptr())
         elif kind == "h":
             if not isinstance(a, bytes):

@@ -10,17 +10,18 @@ device.  Every product below is split so that no intermediate reaches
 value the JAX package computes with its uint32 tricks (including
 ``add_u32_mod_p``'s double-wrap window, which exact int64 arithmetic
 covers by construction).  The SSP's coefficient matrices are read as
-they are: ``gated_rowsum_mod_p``, ``matvec_mod_p`` and
-``poly_eval_mod_p`` take uint32 rows, as the JAX package holds them, on
+they are: ``gated_rowsum_mod_p``, ``gated_rowsums_mod_p``, ``matvec_mod_p``
+and ``poly_eval_mod_p`` take uint32 rows, as the JAX package holds them, on
 every device (any other type raises ValueError), and return int64 words.
 
 On a CUDA tensor these functions run hand-written kernels, and
 ``LAUNCHES`` counts their launches: the gated row-sum is K7
-(``csrc/rowsum.cu``); ``matvec_mod_p`` and ``poly_eval_mod_p`` are K8, the
+(``csrc/rowsum.cu``), ``gated_rowsums_mod_p`` its many-witness form (one read
+of v for the row-sums of up to 16 statements); ``matvec_mod_p`` and ``poly_eval_mod_p`` are K8, the
 latter in its at-s form (the powers of s made in the kernel); and
 ``powers_mod_p`` and ``message_powers`` are K9 (``csrc/modp.cu``).  Their
-plain versions, which the CPU takes, are ``gated_rowsum_plain`` and
-``matvec_plain`` (float64 matrix products: torch refuses integer ``mm`` on
+plain versions, which the CPU takes, are ``gated_rowsum_plain``,
+``gated_rowsums_plain`` and ``matvec_plain`` (float64 matrix products: torch refuses integer ``mm`` on
 CUDA, and a float64 sum of integers is exact while every partial sum stays
 below 2^53, which the operand splits here guarantee), ``poly_eval_plain``,
 ``powers_plain`` (doubling) and ``message_powers_plain``.
@@ -40,6 +41,11 @@ P = (1 << 32) - 5  # plaintext modulus (GAMMA_P)
 _CHUNK = 1024
 # rows a CUDA block of K7 sums (csrc/rowsum.cu: kChunkRows, also its columns)
 ROWSUM_CHUNK_ROWS = 256
+# K7's many-witness form (csrc/rowsum.cu): statements a launch (kStatements),
+# columns and rows a block (kManyCols, kManyChunkRows)
+ROWSUMS_STATEMENTS = 16
+ROWSUMS_COLS = 256
+ROWSUMS_CHUNK_ROWS = 2048
 # K8 (csrc/modp.cu): rows a CUDA block sums together (kRows), the fewest
 # columns a block takes when a row is split over blocks, and the blocks
 # that fill the card (132 SMs x 8)
@@ -53,7 +59,8 @@ MATVEC_MAX_D = 1 << 37
 # below 2^53 for fewer than 2^21 columns
 _MATVEC_PLAIN_COLS = 1 << 20
 
-LAUNCHES = spans.count_launches({"gated_rowsum_p": 0, "matvec_mod_p": 0, "powers_mod_p": 0})
+LAUNCHES = spans.count_launches(
+    {"gated_rowsum_p": 0, "gated_rowsums_p": 0, "matvec_mod_p": 0, "powers_mod_p": 0})
 
 
 def words(x):
@@ -274,6 +281,70 @@ def gated_rowsum_mod_p(v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     done = torch.empty(-(-d // ROWSUM_CHUNK_ROWS), dtype=torch.int32, device=v.device)
     _build.launch("cls_gated_rowsum_p", v, gate.contiguous(), m, d, partial, done, out)
     LAUNCHES["gated_rowsum_p"] += 1
+    return out
+
+
+def gated_rowsums_plain(v: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """The many-witness form's plain version: one float64 matrix product
+    [B, chunk] x [chunk, d] per row chunk, exact as ``gated_rowsum_plain``
+    is (a 0/1-weighted sum of m < 2^21 words is < 2^53)."""
+    m, d = v.shape
+    assert m < 1 << 21, m
+    g = gates.to(torch.float64)
+    total = torch.zeros(gates.shape[0], d, dtype=torch.int64, device=v.device)
+    for lo in range(0, m, _CHUNK):
+        part = g[:, lo : lo + _CHUNK] @ v[lo : lo + _CHUNK].to(torch.float64)
+        total += part.to(torch.int64)
+    return total % P
+
+
+def gated_rowsums_mod_p(v: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """The row-sums of B statements over one v: row b is
+    ``gated_rowsum_mod_p(v, gates[b])`` bit for bit.
+
+    v: uint32 [m, d] (entries < p); gates: 0/1 uint8 or bool [B, m], on v's
+    device (any other type, shape or device raises ValueError); returns
+    int64 [B, d].  gates may be a column slice of a batch's witnesses: its
+    rows are read in place.  On a CUDA tensor, one launch of
+    ``csrc/rowsum.cu``'s many-witness form a group of 16 statements, which
+    reads each row of v once if any statement of the group gates it; v must
+    be contiguous there.  On the CPU, ``gated_rowsums_plain``."""
+    _check_uint32(v)
+    m, d = v.shape
+    if gates.dim() != 2 or gates.shape[1] != m or gates.dtype not in (torch.uint8, torch.bool):
+        raise ValueError(f"gates: expected 0/1 uint8 or bool [B, {m}], got {gates.dtype} "
+                         f"{tuple(gates.shape)}")
+    if gates.device != v.device:
+        raise ValueError(f"gates: expected on {v.device}, got {gates.device}")
+    if v.device.type == "cpu":
+        return gated_rowsums_plain(v, gates)
+    if not v.is_contiguous() or m >= 1 << 21:
+        raise ValueError(f"v: expected a contiguous uint32 [m < 2^21, d], got "
+                         f"{tuple(v.shape)} (contiguous={v.is_contiguous()})")
+    return _rowsums_launch(v, gates)
+
+
+def _rowsums_launch(v: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """K7's many-witness form: one launch a group of ROWSUMS_STATEMENTS
+    statements, their partials in one buffer used by each in turn."""
+    (m, d), b = v.shape, gates.shape[0]
+    out = torch.empty(b, d, dtype=torch.int64, device=v.device)
+    if b == 0 or m == 0 or d == 0:
+        return out.zero_()
+    if gates.dtype == torch.bool:
+        gates = gates.view(torch.uint8)
+    if gates.stride(1) != 1:
+        gates = gates.contiguous()
+    chunks = -(-m // ROWSUMS_CHUNK_ROWS)
+    group = min(b, ROWSUMS_STATEMENTS)
+    partial = torch.empty(chunks * group * d, dtype=torch.int64, device=v.device)
+    done = torch.empty(-(-d // ROWSUMS_COLS), dtype=torch.int32, device=v.device)
+    for lo in range(0, b, ROWSUMS_STATEMENTS):
+        rows = gates[lo : lo + ROWSUMS_STATEMENTS]
+        k = rows.shape[0]
+        _build.launch("cls_gated_rowsums_p", v, rows, rows.stride(0), k, m, d,
+                      partial[: chunks * k * d], done, out[lo : lo + k])
+        LAUNCHES["gated_rowsums_p"] += 1
     return out
 
 

@@ -113,6 +113,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # K6 and K7 port jnp code the JAX package compiles into its programs
     "ntt": ("c_lwe_snarks_tpu_torch/csrc/ntt.cu", "c_lwe_snarks_tpu/ops/ntt.py:266"),
     "gated_rowsum_p": ("c_lwe_snarks_tpu_torch/csrc/rowsum.cu", "c_lwe_snarks_tpu/ops/modp.py:162"),
+    # K7's many-witness form: prover_batch's row-sums, one read of v
+    "gated_rowsums_p": ("c_lwe_snarks_tpu_torch/csrc/rowsum.cu", "c_lwe_snarks_tpu/ops/modp.py:162"),
     # K8..K10: setup's message schedule, polynomials at s (K8's at-s form),
     # the digit carry fold (jnp code too)
     "matvec_mod_p": ("c_lwe_snarks_tpu_torch/csrc/modp.cu", "c_lwe_snarks_tpu/ops/modp.py:186"),
@@ -131,8 +133,8 @@ FILES_PATH = ("keystream_words", "eval_mac_planes", "keystream_blocks_v1", "ntt"
 # needs W > 1 processes, so K6 runs there only over gloo (CPU tests)
 SHARDED_PATH = ("keystream_words", "keystream_fold_p", "eval_mac_planes", "encrypt_b_fused",
                 "gated_rowsum_p", "matvec_mod_p", "carry_fold", "verify")
-# prover_batch: K1 (delta), K6, K7, K3's many-lane form, K10
-BATCH_PATH = ("keystream_words", "eval_mac_lanes", "ntt", "gated_rowsum_p", "carry_fold")
+# prover_batch: K1 (delta), K6, K7's many-witness form, K3's many-lane form, K10
+BATCH_PATH = ("keystream_words", "eval_mac_lanes", "ntt", "gated_rowsums_p", "carry_fold")
 BATCH = 10  # statements of the batch (the benchmark's release.prove_batch10)
 SHARDED_WORLDS = (4, 3)  # ranks simulated on the one card; 3 splits the release rows raggedly
 # launches of one release run, by design: K8 t(s) and v at setup; K9
@@ -187,7 +189,9 @@ BITSLICED_OPS = (115 * 16 * 14 + 108 * 4 * 13 + 128 * 15 + 4 * 480) / 32 / 2
 # (Montgomery) product 8 and of the n^-1 scale 9 a prime; the CRT 40 an
 # output (five Shoup multiplies' worth and the subtractions and adds).  The
 # four-step's twiddles and reductions of the inputs are the design's, not
-# counted.  K7 (rowsum.cu): one 64-bit add (2) a gated entry read.
+# counted.  K7 (rowsum.cu): one 64-bit add (2) a gated entry read; its
+# many-witness form: two int8 operations a statement, byte plane and entry of
+# a row some statement gates (its PRMTs are the design's, not counted).
 BUTTERFLY_OPS = 16
 POINTWISE_OPS = 8 + 9
 CRT_OPS = 40
@@ -422,6 +426,18 @@ def poly_cases(P, ent_key) -> dict:
         gated = int(gate.sum())
         return bound(4 * gated * cols + gate.numel() + 8 * cols, 2 * gated * cols)
 
+    def k7_many_bound(gates, cols):  # the union of the gated rows, read once
+        union, b = int(gates.any(0).sum()), gates.shape[0]
+        return bound(4 * union * cols + gates.numel() + 8 * b * cols, 0, 2 * 4 * b * union * cols)
+
+    gen_w = torch.Generator(device=DEVICE).manual_seed(BATCH)
+    batch_gates = torch.stack([wits] + [torch.randint(0, 2, (m,), generator=gen_w, device=DEVICE,
+                                                      dtype=torch.uint8) for _ in range(BATCH - 1)])
+    batch_gates = batch_gates[:, : m - 1]  # a column slice, as prover_polys_batch passes it
+    many_bound = k7_many_bound(batch_gates, d)
+    singles_bound = {"bound_ms": sum(k7_bound(g, d)["bound_ms"] for g in batch_gates),
+                     "bound_by": "bytes"}
+
     def div(k6: bool):
         with contextlib.nullcontext() if k6 else plain_k6():
             return ntt.poly_div_exact_mod_p(num, t, d, den_degree=degree, den_lead=lead)
@@ -485,6 +501,14 @@ def poly_cases(P, ent_key) -> dict:
              lambda: modp.gated_rowsum_mod_p(ssp.v[1:], wits[: m - 1]),
              lambda: modp.gated_rowsum_plain(ssp.v[1:], wits[: m - 1]),
              k7_bound(wits[: m - 1], d))],
+        # the ten single launches first, the many-witness form last (reported)
+        "gated_rowsums_p": [
+            (f"the batch's ten w's by K7, a launch a witness: v[1:] [{m - 1}, {d}]", 5,
+             lambda: torch.stack([modp.gated_rowsum_mod_p(ssp.v[1:], g) for g in batch_gates]),
+             lambda: modp.gated_rowsums_plain(ssp.v[1:], batch_gates), singles_bound),
+            (f"the batch's ten w's in one launch: v[1:] [{m - 1}, {d}], {BATCH} witnesses", 5,
+             lambda: modp.gated_rowsums_mod_p(ssp.v[1:], batch_gates),
+             lambda: modp.gated_rowsums_plain(ssp.v[1:], batch_gates), many_bound)],
     }
 
 
@@ -1410,6 +1434,27 @@ def phase_profile(label: str) -> None:
         fn()
         profiled_line(tag, kernel, counter, lambda: [fn() for _ in range(reps)], reps, label,
                       launches)
+    # K7 device-side at the batch's row-sums: its many-witness form against its
+    # bound (the union of the gated rows of v[1:], read once) and K7 a witness
+    gen_w = torch.Generator(device=DEVICE).manual_seed(BATCH)
+    gates = torch.randint(0, 2, (BATCH, P.m), generator=gen_w, device=DEVICE,
+                          dtype=torch.uint8)[:, : P.m - 1]
+    union = int(gates.any(0).sum())
+    many_bound = 4 * union * P.d / PEAK_BYTES * 1e3
+    for tag, kernel, counter, fn, bound_ms in (
+            (f"K7's many-witness form at v[1:] [{P.m - 1}, {P.d}], {BATCH} witnesses",
+             "gated_rowsums_kernel", "gated_rowsums_p",
+             lambda: modp.gated_rowsums_mod_p(ssp.v[1:], gates), many_bound),
+            (f"K7 at v[1:] [{P.m - 1}, {P.d}], one witness ({BATCH} launches a batch)",
+             "gated_rowsum_kernel", "gated_rowsum_p",
+             lambda: modp.gated_rowsum_mod_p(ssp.v[1:], gates[0]),
+             4 * int(gates[0].sum()) * P.d / PEAK_BYTES * 1e3)):
+        fn()
+        us = profiled_line(tag, kernel, counter, lambda: [fn() for _ in range(reps)], reps, label,
+                           modp.LAUNCHES)
+        if us is not None:
+            print(f"phase profile:   {tag}: bound {bound_ms:.4f} ms by bytes, device-side "
+                  f"{100 * bound_ms / (us / 1e3):.1f} % of it [{label}]")
     del ssp, v_lo, v_hi, mac_sets, planes_sets, crs, vrs, proof, cts, probe
     host_issue(label)
     # the release prover after a warm call, and what its polynomial stage
@@ -1653,17 +1698,20 @@ def phase_batch_stage(crs_key, ent_key, offsets, run, wits, one: dict, label: st
         crs_key, ent_key, offsets, run.crs, run.ssp, wits, P))
     sweep_dev = sum(us for name, (us, _) in sweep_items.items() if "eval_mac" in name) / 1e3
     print(f"phase batch: prover_polys_batch over {BATCH} statements {stage_ms:.3f} ms (CUDA events), "
-          f"device-side {stage_dev:.3f} ms (K6 {dev_ms['ntt_']:.3f}, K7 {dev_ms['gated_rowsum']:.3f}, "
+          f"device-side {stage_dev:.3f} ms (K6 {dev_ms['ntt_']:.3f}, K7's many-witness form "
+          f"{dev_ms['gated_rowsum']:.3f}, "
           f"K1 {dev_ms['keystream']:.3f}); {BATCH} prover_polys {singles_ms:.3f} ms; the batch's "
           f"sweep (K3) device-side {sweep_dev:.3f} ms [{label}]; {same} of {BATCH} rows equal; "
           f"launches: K6 {launches['ntt']} (one statement's {one['ntt']}), Newton {newton} traced, "
-          f"K7 {launches['gated_rowsum_p']}, K1 {launches['keystream_words']}")
+          f"K7 {launches['gated_rowsum_p']}, its many-witness form {launches['gated_rowsums_p']}, "
+          f"K1 {launches['keystream_words']}")
     check(same == BATCH, "batch: a row of prover_polys_batch differs from prover_polys")
     check(launches["ntt"] == one["ntt"] and newton == 1,
           f"batch: the stage made {launches['ntt']} K6 launches ({newton} Newton), one "
           f"statement's {one['ntt']}")
-    check(launches["gated_rowsum_p"] == BATCH and launches["keystream_words"] == BATCH,
-          "batch: the stage's K7 or K1 launches are not one a statement")
+    check(launches["gated_rowsums_p"] == 1 and launches["gated_rowsum_p"] == 0,
+          "batch: the stage's row-sums are not one launch of K7's many-witness form")
+    check(launches["keystream_words"] == BATCH, "batch: the stage's K1 launches are not one a statement")
 
 
 def phase_d16(label: str) -> dict:

@@ -425,6 +425,47 @@ def test_k7_refuses_a_v_it_cannot_read(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,b,kind", [
+    (21844, 1 << 15, 10, "random"), (1000, 300, 2, "random"), (2100, 1030, 16, "random"),
+    (2100, 1030, 17, "random"), (513, 256, 17, "ones_max"), (300, 37, 16, "ones_max")])
+def test_k7_many_rowsums(cuda, rows, d, b, kind):
+    """K7's many-witness form against its plain version and against B launches
+    of K7, bit for bit: the prover's v[1:] at release with 10 witnesses,
+    ragged chunks and column groups (d not a multiple of 256, nor of 4: the
+    unvectorized loads), 16 statements (one launch) and 17 (two), the
+    largest sums (every gate 1, every entry p - 1); the gates a column slice
+    of the witnesses, a row no statement gates and one every statement
+    gates."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d + b)
+    if kind == "ones_max":
+        v = torch.full((rows, d), PM1, dtype=torch.uint32).to(cuda)
+        wits = torch.ones(b, rows + 1, dtype=torch.uint8, device=cuda)
+    else:
+        v = torch.randint(0, PM1 + 1, (rows, d), generator=gen, device=cuda).to(torch.uint32)
+        wits = torch.randint(0, 2, (b, rows + 1), generator=gen, device=cuda, dtype=torch.uint8)
+        wits[:, 5], wits[:, 7] = 0, 1
+    gates = wits[:, :rows]
+    before = dict(modp.LAUNCHES)
+    got = modp.gated_rowsums_mod_p(v, gates)
+    assert modp.LAUNCHES["gated_rowsums_p"] - before["gated_rowsums_p"] == -(-b // 16)
+    assert modp.LAUNCHES["gated_rowsum_p"] == before["gated_rowsum_p"]
+    assert got.dtype == torch.int64 and got.shape == (b, d)
+    _eq(got, modp.gated_rowsums_plain(v, gates))
+    _eq(got, torch.stack([modp.gated_rowsum_mod_p(v, g) for g in gates]))
+    _eq(modp.gated_rowsums_mod_p(v, gates.bool()), got)
+
+
+@pytest.mark.gpu
+def test_k7_many_refuses_what_it_cannot_read(cuda):
+    """A strided v, gates on another device or of another type raise."""
+    v = torch.zeros(8, 16, dtype=torch.uint32, device=cuda)
+    gates = torch.ones(2, 8, dtype=torch.uint8, device=cuda)
+    for args in ((v[:, ::2], gates), (v, gates.cpu()), (v, gates.int()), (v, gates[:, :7])):
+        with pytest.raises(ValueError):
+            modp.gated_rowsums_mod_p(*args)
+
+
+@pytest.mark.gpu
 def test_k6_k7_prover_polys_without_host_sync(cuda):
     """Once t's degree and leading coefficient are read, the row-sum (K7),
     v^2 and the division (K6) run with no device-to-host sync; the result
@@ -995,8 +1036,9 @@ def test_prover_polys_batch_at_release_equals_prover_polys(release_circuit):
     """Ten statements' polynomial stage at release in one
     ``prover_polys_batch``: row j is ``prover_polys`` of statement j; it
     makes one host sync (t's degree, as one statement's stage does), a K1
-    and a K7 launch a statement and one statement's 31 K6 launches (t's
-    series inverse once).  The stage's and the ten single stages' walls are
+    launch a statement, one launch of K7's many-witness form and none of K7
+    (one read of v for the ten row-sums), and one statement's 31 K6 launches
+    (t's series inverse once).  The stage's and the ten single stages' walls are
     printed."""
     import time
 
@@ -1038,10 +1080,22 @@ def test_prover_polys_batch_at_release_equals_prover_polys(release_circuit):
     assert spans.sync_sites() == {"ntt.poly_degree_and_lead": 1}
     spans.reset()
     assert aes.LAUNCHES["keystream_words"] - before[0]["keystream_words"] == 10
-    assert modp.LAUNCHES["gated_rowsum_p"] - before[1]["gated_rowsum_p"] == 10
+    assert modp.LAUNCHES["gated_rowsum_p"] - before[1]["gated_rowsum_p"] == 0
+    assert modp.LAUNCHES["gated_rowsums_p"] - before[1]["gated_rowsums_p"] == 1
     assert ntt.LAUNCHES["ntt"] - before[2] == 31
     for g, x in zip(again, got):
         _eq(g, x)
+
+
+@pytest.mark.gpu
+def test_release_prover_makes_one_k7_launch(release_circuit):
+    """One statement's proof at release keeps K7's one-witness form: one
+    gated_rowsum_p launch, none of the many-witness form."""
+    _, _, _, _, prove = release_circuit
+    before = dict(modp.LAUNCHES)
+    prove()
+    assert modp.LAUNCHES["gated_rowsum_p"] - before["gated_rowsum_p"] == 1
+    assert modp.LAUNCHES["gated_rowsums_p"] == before["gated_rowsums_p"]
 
 
 @pytest.mark.gpu

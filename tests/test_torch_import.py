@@ -55,7 +55,7 @@ def test_chip_smoke_imports_without_jax():
     entry point refuses to run without a CUDA device."""
     res = _run(
         "import torch, chip_smoke\n"
-        "assert len(chip_smoke.KERNELS) == 12, chip_smoke.KERNELS\n"
+        "assert len(chip_smoke.KERNELS) == 13, chip_smoke.KERNELS\n"
         "assert torch.cuda.is_available() or chip_smoke.main() != 0\n"
         + _NONE_LOADED)
     assert res.returncode == 0, res.stderr
