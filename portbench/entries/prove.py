@@ -30,6 +30,7 @@ def prepare(ctx):
     crs, _ = snark.setup(crs_key, ent_key, off_setup, inst, P)
     state = dict(P=P, RP=ctx.ref_params(), crs_key=crs_key, ent_key=ent_key, wits=wits,
                  ssp=inst, crs=crs)
+    ctx.phase("warm")
     for i in range(int(ctx.traffic["warm"])):
         request(ctx, state, i)
     return state

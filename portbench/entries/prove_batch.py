@@ -27,8 +27,17 @@ statement's witness bits, uint8 [m] on the device; the proofs in the order
 of offsets, each equal to ``snark.prover``'s for that offset and witness),
 ``serve`` calls it once for the requests handed to it; otherwise it calls
 ``snark.prover`` for each request in turn and yields each proof as it is
-done.  The check derives the W statements and the sampled proofs again with
-the plain reference and compares every byte.
+done.  The proofs of a ``prover_batch`` call go to the host, where the port has
+
+    serial.proofs_to_bytes(proofs, params) -> list[bytes]
+
+(one entry a proof, in order, each byte for byte
+``serial.proof_to_bytes(proof, params)``), through one call of it for the
+batch, inside one ``proof_to_bytes`` span; a call that raises fails every
+request of the batch.  Otherwise each proof goes through
+``serial.proof_to_bytes`` in a span of its own.  The check derives the W
+statements and the sampled proofs again with the plain reference and
+compares every byte.
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ def prepare(ctx):
     crs, _ = snark.setup(crs_key, ent_key, ssp.entropy_bytes_random_ssp(P), inst, P)
     state = dict(P=P, RP=ctx.ref_params(), W=W, crs_key=crs_key, ent_key=ent_key, wits=wits,
                  ssp=inst, crs=crs)
+    ctx.phase("warm")
     for _ in serve(ctx, state, range(int(ctx.traffic["warm"]))):
         pass
     return state
@@ -98,10 +108,7 @@ def serve(ctx, state, indices):
         with ctx.spans("prover"):
             proofs = batch(state["crs_key"], state["ent_key"], offsets, state["crs"],
                            state["ssp"], wits, P)
-        for i, pi in zip(indices, proofs):
-            with ctx.spans("proof_to_bytes"):
-                answer = serial.proof_to_bytes(pi, P)
-            yield i, answer
+        yield from written(ctx, indices, proofs, P)
         return
     for i, off, w in zip(indices, offsets, wits):
         try:
@@ -114,6 +121,28 @@ def serve(ctx, state, indices):
             print(f"request {i} failed: {exc!r}", file=sys.stderr)
             answer = None
         yield i, answer
+
+
+def written(ctx, indices: list, proofs: list, P):
+    """(i, proof i's bytes) for the requests of one ``prover_batch`` call:
+    one call of ``serial.proofs_to_bytes`` where the port has it (None for
+    every request if it raises), else ``serial.proof_to_bytes`` a proof."""
+    from c_lwe_snarks_tpu_torch.utils import serial
+
+    write_all = getattr(serial, "proofs_to_bytes", None)
+    if write_all is None:
+        for i, pi in zip(indices, proofs):
+            with ctx.spans("proof_to_bytes"):
+                answer = serial.proof_to_bytes(pi, P)
+            yield i, answer
+        return
+    try:
+        with ctx.spans("proof_to_bytes"):
+            answers = write_all(proofs, P)
+    except Exception as exc:  # noqa: BLE001 - the batch's requests are counted as failed
+        print(f"requests {indices} failed: {exc!r}", file=sys.stderr)
+        answers = [None] * len(indices)
+    yield from zip(indices, answers)
 
 
 def expected(ctx, picked, q_bits=None) -> dict:

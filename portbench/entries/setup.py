@@ -24,6 +24,7 @@ def _seeds(ctx, i: int) -> tuple:
 
 def prepare(ctx):
     state = dict(P=ctx.port_params())
+    ctx.phase("warm")
     for i in range(int(ctx.traffic["warm"])):
         request(ctx, state, i)
     return state

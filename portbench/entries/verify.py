@@ -66,6 +66,7 @@ def prepare(ctx):
     del crs
     tampers, order = _plan(ctx, P.n)
     state = dict(P=P, vrs=vrs, ssp=inst, pool=_pool(proofs, tampers), order=order)
+    ctx.phase("warm")
     for i in range(int(ctx.traffic["warm"])):
         request(ctx, state, i)
     return state

@@ -11,7 +11,8 @@ mix or metric is new files and an entry in ``BENCHMARK.json``; no file here
 changes.
 
 A run: set-up (import, the kernel library, the cell's state made on the
-device from the seed, a few requests of the cell's own shapes), then a
+device from the seed, a few requests of the cell's own shapes; the seconds
+of each part on standard error), then a
 closed loop with the traffic's ``clients`` (one by default) for
 ``--seconds`` (under ``torch.profiler`` with ``--trace 1``), then, with the
 program's state freed, the plain reference over a sample of the window's
@@ -136,6 +137,7 @@ class Context:
     seed: int
     device: object
     spans: Spans
+    phases: list = dataclasses.field(default_factory=list)  # [(set-up's part, its start)]
 
     @property
     def cfg(self) -> dict:
@@ -169,6 +171,15 @@ class Context:
             import torch
 
             torch.cuda.synchronize(self.device)
+
+    def phase(self, name: str) -> None:
+        """Set-up's part ``name`` begins now, once the device has done the
+        work of the part before (where it has a context)."""
+        import torch
+
+        if self.device.type == "cuda" and torch.cuda.is_initialized():
+            torch.cuda.synchronize(self.device)
+        self.phases.append((name, time.perf_counter()))
 
 
 @dataclasses.dataclass
@@ -293,8 +304,11 @@ def _reset_counters() -> None:
 
 
 def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool, device,
-             t_start: float, root: pathlib.Path = ROOT) -> dict:
-    """One run of a cell on ``device``; returns the result line's object."""
+             t_start: float, root: pathlib.Path = ROOT, phases: list | None = None) -> dict:
+    """One run of a cell on ``device``; returns the result line's object.
+    ``phases``: set-up's parts before this call, [(name, start)]; by default
+    one, "imports", from ``t_start``."""
+    phases = [*(phases or [("imports", t_start)]), ("benchmark files", time.perf_counter())]
     import torch
 
     from portbench import trace as tracing
@@ -302,16 +316,26 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     cell = Cell.find(bench, workload, root)
     device = torch.device(device)
     spans = Spans(trace, device)
-    ctx = Context(cell, seed, device, spans)
+    ctx = Context(cell, seed, device, spans, phases)
     entry = cell.entry
     if device.type == "cuda":
+        ctx.phase("cuda context")
         torch.cuda.set_device(device)
         torch.zeros(1, device=device)  # the context and the allocator, before their peak is reset
         torch.cuda.reset_peak_memory_stats(device)
-    state = entry.prepare(ctx)
+        ctx.phase("port and kernel library")
+        from c_lwe_snarks_tpu_torch.ops import _build
+
+        _build.library()  # built in a checkout's first run, loaded in every run
+    ctx.phase("state")
+    state = entry.prepare(ctx)  # an entry marks the start of its warm requests: ctx.phase("warm")
     ctx.sync()
-    setup_s = time.perf_counter() - t_start
-    print(f"set-up {setup_s:.6f} s", file=sys.stderr)
+    t_setup = time.perf_counter()
+    setup_s = t_setup - t_start
+    marks = [*ctx.phases, ("", t_setup)]
+    print(f"set-up {setup_s:.6f} s: " + ", ".join(
+        f"{name} {end - start:.6f} s" for (name, start), (_, end) in zip(marks, marks[1:])),
+        file=sys.stderr)
     first = int(cell.traffic["warm"])
     _reset_counters()
     prof = None
@@ -380,6 +404,7 @@ def main(argv, t_start: float) -> int:
     chips = int({w["name"]: w for w in bench["workloads"]}[args.workload]["chips"])
     import torch
 
+    phases = [("imports", t_start), ("cuda driver", time.perf_counter())]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"portbench: the cell needs {chips} CUDA device(s); "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
@@ -387,7 +412,7 @@ def main(argv, t_start: float) -> int:
         return 2
     torch.set_num_threads(1)
     result = run_cell(bench, args.workload, args.seed, args.seconds, bool(args.trace), "cuda:0",
-                      t_start)
+                      t_start, phases=phases)
     found = forbidden_modules()
     if found:
         print(f"portbench: JAX or the JAX package was loaded: {found}", file=sys.stderr)

@@ -56,3 +56,12 @@ def encrypt_bound_ms(cfg: dict) -> float:
     n, digits = int(cfg["n"]), 88
     return bound_ms(n * digits + 8 * terms(cfg) * digits, OPS_PER_BLOCK * stream_blocks(cfg),
                     2 * 2 * terms(cfg) * n * (digits * (digits + 1) // 2))
+
+
+def rowsum_bound_ms(cfg: dict, clients: int = 1) -> float:
+    """The prover's gated row-sums (K7) of ``clients`` (C) statements with
+    independent half-dense witnesses, over v[1:]: the expected union of their
+    gated rows, (m - 1)(1 - 2^-C) rows of d uint32 words, read once, and the
+    C (m - 1) gate bytes."""
+    rows = int(cfg["m"]) - 1
+    return bound_ms(rows * (1 - 0.5**clients) * 4 * int(cfg["d"]) + clients * rows, 0)

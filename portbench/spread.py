@@ -34,6 +34,8 @@ def run(cell: str, seed: int, seconds: float, trace: int) -> dict:
     result = json.loads(lines[-1]) if p.returncode == 0 and lines else None
     return {"cell": cell, "seed": seed, "trace": trace, "seconds": seconds, "rc": p.returncode,
             "wall_s": time.perf_counter() - t0, "result": result,
+            "setup_parts": next((x for x in p.stderr.splitlines() if x.startswith("set-up ")),
+                                None),
             "stderr_tail": p.stderr[-3000:] if result is None or not result["correct"] else ""}
 
 

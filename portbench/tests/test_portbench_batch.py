@@ -224,6 +224,63 @@ def test_a_sound_prover_batch_is_served_and_correct(tiny, monkeypatch):
     json.dumps(r)
 
 
+def test_a_list_writer_is_called_once_a_serve_call(tiny, monkeypatch):
+    """The ``serial.proofs_to_bytes`` contract, met through ``proof_to_bytes``:
+    the entry writes each ``prover_batch`` call's proofs with one call of it,
+    and the run comes out correct."""
+    from c_lwe_snarks_tpu_torch.models import snark
+    from c_lwe_snarks_tpu_torch.utils import serial
+
+    batches, writes = [], []
+    prover_batch = snark.prover_batch
+
+    def counted_batch(*args):
+        batches.append(1)
+        return prover_batch(*args)
+
+    def proofs_to_bytes(proofs, P):
+        writes.append(len(proofs))
+        return [serial.proof_to_bytes(pi, P) for pi in proofs]
+
+    monkeypatch.setattr(snark, "prover_batch", counted_batch)
+    monkeypatch.setattr(serial, "proofs_to_bytes", proofs_to_bytes, raising=False)
+    root, b = tiny
+    r = harness.run_cell(b, "tiny.prove_batch", SEED, 0.4, False, "cpu", time.perf_counter(),
+                         root=root)
+    assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0, r["checks"]
+    assert len(writes) == len(batches) >= 2 and set(writes) == {10}
+
+
+def test_without_a_list_writer_each_proof_is_written_alone(prepared, monkeypatch):
+    from c_lwe_snarks_tpu_torch.utils import serial
+
+    cell, ctx, state = prepared
+    monkeypatch.delattr(serial, "proofs_to_bytes", raising=False)
+    one, writes = serial.proof_to_bytes, []
+
+    def proof_to_bytes(pi, P):
+        writes.append(1)
+        return one(pi, P)
+
+    monkeypatch.setattr(serial, "proof_to_bytes", proof_to_bytes)
+    answers = list(cell.entry.serve(ctx, state, range(10, 20)))
+    assert [i for i, _ in answers] == list(range(10, 20)) and len(writes) == 10
+    assert all(isinstance(a, bytes) for _, a in answers)
+
+
+def test_a_list_writer_that_raises_fails_the_whole_batch(tiny, monkeypatch):
+    from c_lwe_snarks_tpu_torch.utils import serial
+
+    def proofs_to_bytes(proofs, P):
+        raise RuntimeError("a writer that fails")
+
+    monkeypatch.setattr(serial, "proofs_to_bytes", proofs_to_bytes, raising=False)
+    root, b = tiny
+    r = harness.run_cell(b, "tiny.prove_batch", SEED, 0.4, False, "cpu", time.perf_counter(),
+                         root=root)
+    assert not r["correct"] and r["attempted"] > 0 and r["failed"] == r["attempted"]
+
+
 def _read_k3(name, clients, sweeps_ms, proofs):
     """``name`` read from a traced window in which K3 ran once for each of
     ``sweeps_ms`` (its milliseconds) and ``proofs`` proofs were answered."""

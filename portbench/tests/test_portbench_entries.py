@@ -75,17 +75,31 @@ def _stale(fn):
     return stale
 
 
-def _plant(monkeypatch, kind: str, fault: str) -> None:
+def _plant(monkeypatch, kind: str, fault: str) -> dict:
+    """Plant ``fault`` under the program; returns {hook: the calls the run
+    made of it}, counted for every hook set, so that a hook the timed path
+    no longer calls shows as one never called."""
     from c_lwe_snarks_tpu_torch.models import lwe, snark
     from c_lwe_snarks_tpu_torch.utils import serial
 
-    if kind == "prove_batch" and fault in ("altered", "stale", "half"):
-        kind = "prove"  # the batch entry's proofs come from the same prover, one a request
+    calls = {}
+
+    def hook(obj, name, fn):
+        calls[name] = 0
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(obj, name, counted, raising=False)
+
+    if kind == "prove_batch" and fault in ("altered", "half"):
+        kind = "prove"  # the batch's proofs are written and evaluated by the same functions
     if (kind, fault) == ("prove", "altered"):
         f = serial.proof_to_bytes
-        monkeypatch.setattr(serial, "proof_to_bytes", lambda pi, P: _flip(f(pi, P), 4000))
+        hook(serial, "proof_to_bytes", lambda pi, P: _flip(f(pi, P), 4000))
     elif (kind, fault) == ("prove", "stale"):
-        monkeypatch.setattr(snark, "prover", _stale(snark.prover))
+        hook(snark, "prover", _stale(snark.prover))
     elif (kind, fault) == ("prove", "half"):
         f = lwe.eval_poly_multi
 
@@ -94,22 +108,22 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
             coeffs[:, coeffs.shape[1] // 2 :] = 0  # the second half of the terms left out
             return f(key, off, b_rows, coeffs, params, **kw)
 
-        monkeypatch.setattr(lwe, "eval_poly_multi", half)
+        hook(lwe, "eval_poly_multi", half)
     elif (kind, fault) == ("prove", "fails"):
-        f, calls = snark.prover, []
+        f, seen = snark.prover, []
 
         def sometimes(*args, **kwargs):
-            calls.append(1)
-            if len(calls) % 5 == 4:  # the first request of the window (after 3 warm), and 1 in 5
+            seen.append(1)
+            if len(seen) % 5 == 4:  # the first request of the window (after 3 warm), and 1 in 5
                 raise RuntimeError("a proof that fails")
             return f(*args, **kwargs)
 
-        monkeypatch.setattr(snark, "prover", sometimes)
+        hook(snark, "prover", sometimes)
     elif (kind, fault) == ("setup", "altered"):
         f = serial.crs_to_bytes
-        monkeypatch.setattr(serial, "crs_to_bytes", lambda crs, P: _flip(f(crs, P), 777))
+        hook(serial, "crs_to_bytes", lambda crs, P: _flip(f(crs, P), 777))
     elif (kind, fault) == ("setup", "stale"):
-        monkeypatch.setattr(snark, "setup", _stale(snark.setup))
+        hook(snark, "setup", _stale(snark.setup))
     elif (kind, fault) == ("setup", "half"):
         f = lwe.encrypt_section
 
@@ -118,28 +132,37 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
             rows[rows.shape[0] // 2 :] = 0  # the second half of the encryptions left out
             return rows
 
-        monkeypatch.setattr(lwe, "encrypt_section", half)
+        hook(lwe, "encrypt_section", half)
     elif (kind, fault) == ("verify", "altered"):
         f = snark.verifier
-        monkeypatch.setattr(snark, "verifier", lambda *a: ~f(*a))
+        hook(snark, "verifier", lambda *a: ~f(*a))
     elif (kind, fault) == ("verify", "stale"):
-        monkeypatch.setattr(snark, "verifier", _stale(snark.verifier))
+        hook(snark, "verifier", _stale(snark.verifier))
+    elif (kind, fault) == ("prove_batch", "stale"):
+        f, first = snark.prover_batch, []
+
+        def stale(crs_key, ent_key, offsets, crs, inst, witnesses, P):
+            first[:] = first or f(crs_key, ent_key, offsets, crs, inst, witnesses, P)
+            return [first[k % len(first)] for k in range(len(offsets))]  # the first batch again
+
+        hook(snark, "prover_batch", stale)
     elif (kind, fault) == ("prove_batch", "statement0"):
-        f, first = snark.prover, []
+        f, first = snark.prover_batch, []
 
-        def statement0(crs_key, ent_key, off, crs, inst, witness, P, **kw):
-            first[:] = first or [witness]  # the warm-up's first request is statement 0's
-            return f(crs_key, ent_key, off, crs, inst, first[0], P, **kw)
+        def statement0(crs_key, ent_key, offsets, crs, inst, witnesses, P):
+            first[:] = first or [witnesses[0]]  # the warm-up's first request is statement 0's
+            return f(crs_key, ent_key, offsets, crs, inst, first * len(witnesses), P)
 
-        monkeypatch.setattr(snark, "prover", statement0)
+        hook(snark, "prover_batch", statement0)
     elif (kind, fault) == ("prove_batch", "rowsum0"):
-        f, first = snark.prover_polys, []
+        f, first = snark.prover_polys_batch, []
 
-        def rowsum0(ent_key, off, inst, witness, P, **kw):
-            first[:] = first or [witness]  # every row-sum over statement 0's gates
-            return f(ent_key, off, inst, first[0], P, **kw)
+        def rowsum0(ent_key, offsets, inst, witnesses, P):
+            first[:] = first or [witnesses[0]]  # every row-sum over statement 0's gates
+            return f(ent_key, offsets, inst, first[0].repeat(witnesses.shape[0], 1), P)
 
-        monkeypatch.setattr(snark, "prover_polys", rowsum0)
+        # prover_batch looks it up as a module global; the b_w lanes keep their own bits
+        hook(snark, "prover_polys_batch", rowsum0)
     elif (kind, fault) in (("prove_batch", "swapped"), ("prove_batch", "half_batch")):
 
         def batch(crs_key, ent_key, offsets, crs, inst, witnesses, P):
@@ -151,9 +174,17 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
                 proofs[k], proofs[k + 1] = proofs[k + 1], proofs[k]
             return proofs
 
-        monkeypatch.setattr(snark, "prover_batch", batch, raising=False)
+        hook(snark, "prover_batch", batch)
+    elif (kind, fault) == ("prove_batch", "writer_altered"):
+
+        def proofs_to_bytes(proofs, P):
+            out = [serial.proof_to_bytes(pi, P) for pi in proofs]
+            return [_flip(out[0], 4000), *out[1:]]  # a byte of the call's answer 0 flipped
+
+        hook(serial, "proofs_to_bytes", proofs_to_bytes)
     else:
         raise AssertionError((kind, fault))
+    return calls
 
 
 @pytest.mark.parametrize("kind,fault", [
@@ -162,13 +193,16 @@ def _plant(monkeypatch, kind: str, fault: str) -> None:
     ("verify", "altered"), ("verify", "stale"),
     ("prove_batch", "altered"), ("prove_batch", "stale"), ("prove_batch", "half"),
     ("prove_batch", "statement0"), ("prove_batch", "rowsum0"), ("prove_batch", "swapped"),
-    ("prove_batch", "half_batch")])
+    ("prove_batch", "half_batch"), ("prove_batch", "writer_altered")])
 def test_planted_fault_is_not_correct(tiny, monkeypatch, kind, fault):
-    _plant(monkeypatch, kind, fault)
+    calls = _plant(monkeypatch, kind, fault)
     # requests a call leaves unanswered fail when the call ends, and the window's first request is
-    # statement 0's, which a fault on the other statements leaves right: a window that outlasts one call
-    long = fault in ("half_batch", "statement0", "rowsum0")
-    r = run(tiny, kind, seconds=5.0 if long else 0.4)
+    # statement 0's, which a fault on the other statements leaves right: a window that outlasts one
+    # call; a fault on each call's answer 0 alone: a window that ends at its first answer, that one
+    seconds = {"half_batch": 5.0, "statement0": 5.0, "rowsum0": 5.0, "writer_altered": 0.01}
+    r = run(tiny, kind, seconds=seconds.get(fault, 0.4))
+    never = [name for name, n in calls.items() if not n]
+    assert calls and not never, f"hook never called: {never}"
     assert not r["correct"] and failing(r), r["checks"]
     assert (r["failed"] > 0) == (fault in ("fails", "half_batch"))
 
